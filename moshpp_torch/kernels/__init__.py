@@ -1,0 +1,179 @@
+"""Hand-written Hopper kernels: build, load and launch counts.
+
+The CUDA sources in `moshpp_torch/csrc/` are compiled at first use with
+`nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library with a
+plain C interface, loaded with ctypes. The build directory
+(`moshpp_torch/kernels/build/`, git-ignored) is keyed by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads.
+Nothing here runs at import time: the CPU-only tests import the package on
+hosts without a CUDA toolkit.
+
+Each kernel wrapper adds one to `COUNTS.launches[name]` per launch; each
+plain (PyTorch) version adds one to `COUNTS.plain_cuda[name]` when it runs
+on CUDA tensors, which only comparisons against the kernel should do.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "build"
+LIB_NAME = "libmoshpp_kernels.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-lineinfo")
+
+
+@dataclasses.dataclass
+class Counts:
+    """Launch counts of the kernel wrappers and of the plain versions run on
+    CUDA tensors, keyed by kernel name."""
+    launches: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    plain_cuda: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+
+    def reset(self) -> None:
+        self.launches.clear()
+        self.plain_cuda.clear()
+
+
+COUNTS = Counts()
+
+
+def note_plain(name: str, t: torch.Tensor) -> None:
+    """Count a plain-version call that ran on a CUDA tensor."""
+    if t.is_cuda:
+        COUNTS.plain_cuda[name] += 1
+
+
+@dataclasses.dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    built: bool          # False: loaded an existing build
+    seconds: float       # nvcc wall time (0 when loaded)
+    log: str             # nvcc's output (-Xptxas -v register/smem report)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: $CUDA_HOME/bin/nvcc, then PATH, then the default
+    toolkit location. Raises when there is none."""
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the Hopper kernels need the CUDA "
+                       "toolkit (set CUDA_HOME)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    cus, hdrs = _sources()
+    for p in cus + hdrs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> BuildInfo:
+    """Compile the kernels unless a build of these exact sources exists."""
+    nvcc = nvcc_path()
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    log_file = out_dir / "nvcc.log"
+    if lib.exists():
+        log = log_file.read_text() if log_file.exists() else ""
+        return BuildInfo(lib, False, 0.0, log)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cus, _ = _sources()
+    tmp = out_dir / f"{LIB_NAME}.tmp{os.getpid()}"
+    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *[str(p) for p in cus]]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = r.stdout + r.stderr
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n"
+                           f"{' '.join(cmd)}\n{log[-8000:]}")
+    log_file.write_text(log)
+    os.replace(tmp, lib)          # atomic: a concurrent loader sees all or none
+    return BuildInfo(lib, True, seconds, log)
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "fk_smalls_launch": [_I, _P, _P, _P, _I, _P, _P, _I, _I,
+                         _P, _P, _P, _P, _P, _P, _P],
+    "marker_rows_launch": [_I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "dogleg_direction_launch": [_I, _I, _I, ctypes.c_float, _P, _P, _P, _P,
+                                _P, _P, _P, _P, _P],
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library():
+    """(ctypes library, BuildInfo): builds on the first call."""
+    info = build()
+    lib = ctypes.CDLL(str(info.path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib, info
+
+
+def launch(fn: str, kernel: str, *args) -> None:
+    """Call launcher `fn` of the library on the current CUDA stream and count
+    one launch of `kernel`; raise if CUDA reports an error."""
+    lib, _ = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA error {err}")
+    COUNTS.launches[kernel] += 1
+
+
+def ptr(t: torch.Tensor):
+    """Device pointer of a tensor, or None for an absent optional input."""
+    return None if t is None else t.data_ptr()
+
+
+def check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` and `shape`."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
