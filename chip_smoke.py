@@ -7,10 +7,12 @@ Phases, each failing loudly (exception, nonzero exit, no ok line):
 
   0. the card: refuse to run without CUDA; print the card, CUDA, nvcc and
      the TF32 flags (set off);
-  1. build the Hopper kernels from moshpp_torch/csrc with nvcc (sm_90a);
-  2. hold every kernel against its plain PyTorch version on the card at the
-     main-path shapes (full-width SMPL+H, 46 markers, F=4096, D=117), and
-     time both; the direction kernel also against the plain version in
+  1. build the Hopper kernels from moshpp_torch/csrc with nvcc (sm_90a),
+     one nvcc per source in parallel;
+  2. hold every E=0 kernel against its plain PyTorch version on the card at
+     the main-path shapes (full-width SMPL+H, 46 markers, F=4096, D=117),
+     and time both (kernels host-inclusive, as the plain versions, and
+     device-only); the direction kernel also against the plain version in
      float64 on systems where 24 CG iterations have not converged;
   3. parity: solve the same problems on the CPU (plain versions) and on the
      card (kernels), polish through PCG in both: the reference's
@@ -19,16 +21,24 @@ Phases, each failing loudly (exception, nonzero exit, no ok line):
   4. the slice: `mosh_stageii_solve` at the bench.py protocol (F=4096,
      maxiter=100, two smoothing sweeps, fingers free): one warm-up, the
      median of 3 timed solves, accuracy, host syncs, and each kernel's
-     launch count from one solve.
+     launch count from one solve;
+  2b-4b. the same for the DMPL path: the bench protocol with 8 DMPL
+     soft-tissue coefficients a frame (optimize_dynamics, shapedirs columns
+     16-23, D=125): the four E-carrying kernels against their plain
+     versions (datr included), the direction kernel at D=125 as in phase 2
+     (recorded as dogleg_direction@D125), CPU-vs-card parity at F=256, and
+     the F=4096 DMPL slice, which also reports the DMPL coefficients' RMS
+     error.
 
-The last three lines of stdout are the kernels JSON, the card's name and
-power limit, and {"ok": true, "device": {...}}. A fuller record goes to
-chiprun_out/chip_smoke.json.
+The last three lines of stdout are the kernels JSON (nine kernel entries),
+the card's name and power limit, and {"ok": true, "device": {...}}. A
+fuller record goes to chiprun_out/chip_smoke.json.
 """
 
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -56,10 +66,16 @@ TOL_DIR_VS_F64 = 4.0
 # parity (phase 3), the reference's quality-parity bar and settings
 PARITY_MEAN_MM, PARITY_WANDER_MM = 0.02, 0.6
 FLOOR_FACTOR = 1.5     # bench-problem wander limit: times the CPU's floor
+# the floor is the largest of these perturbed CPU solves' wanders: one
+# sample is a noisy estimate (DMPL problem at F=256, seeds 7-10: 0.70, 0.90,
+# 1.44, 1.50 mm; bench problem: 1.70, 1.09, 1.14, 1.12 mm; PERF.md)
+FLOOR_SEEDS = (7, 8, 9)
 PARITY_OPTS = dict(polish_solver="pcg", e_3_polish=1e-8, e_3_anneal=1e-4,
                    cg_iters=48, cg_iters_polish=256, maxiter=300)
 MAX_MEAN_ERR_MM = 1.0
+HOLD_CYCLES = 100_000_000   # ~50 ms of GPU sleep ahead of timed kernel runs
 
+# kernels of the E=0 path and of the DMPL path: (source, TPU kernel)
 TPU_KERNELS = {
     "fk_smalls<jac>": ("moshpp_torch/csrc/fk_smalls.cu",
                        "moshpp_tpu/ops/pallas_marker_jac.py:374"),
@@ -71,6 +87,16 @@ TPU_KERNELS = {
                          "moshpp_tpu/ops/pallas_marker_jac.py:898"),
     "dogleg_direction": ("moshpp_torch/csrc/dogleg_direction.cu",
                          "moshpp_tpu/solver/pallas_pcg.py:125"),
+}
+EXT_KERNELS = {
+    "fk_smalls<jac,ext>": ("moshpp_torch/csrc/fk_smalls.cu",
+                           "moshpp_tpu/ops/pallas_marker_jac.py:384"),
+    "fk_smalls<sim,ext>": ("moshpp_torch/csrc/fk_smalls.cu",
+                           "moshpp_tpu/ops/pallas_marker_jac.py:816"),
+    "marker_rows<jac,ext>": ("moshpp_torch/csrc/marker_rows.cu",
+                             "moshpp_tpu/ops/pallas_marker_jac.py:712"),
+    "marker_rows<sim,ext>": ("moshpp_torch/csrc/marker_rows.cu",
+                             "moshpp_tpu/ops/pallas_marker_jac.py:908"),
 }
 
 
@@ -85,13 +111,21 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n=5):
-    """Mean device time of `fn` over n runs after one warm-up (CUDA events)."""
+def cuda_ms(fn, n=5, hold=False):
+    """Mean time of `fn` over n runs after one warm-up (CUDA events). Without
+    `hold` the events also see the host's time to queue the runs, as the
+    plain versions' readings do. With `hold`, a GPU sleep holds the
+    stream while the host queues the n runs, so the events see device time
+    alone (a 30 us kernel reads 35-63 us without it; PERF.md). Only for
+    functions that never wait on the device: the kernels' wrappers, not the
+    plain versions, which copy small tables to the card synchronously."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(n):
         fn()
@@ -100,16 +134,27 @@ def cuda_ms(fn, n=5):
     return start.elapsed_time(end) / n
 
 
+def timed(kernel_fn, plain_fn, n_plain=5) -> dict:
+    """A kernel's times beside its plain version's: `ms` and `plain_ms`
+    measured alike (host-inclusive), `ms_device` with the stream held."""
+    return dict(ms=cuda_ms(kernel_fn), ms_device=cuda_ms(kernel_fn, hold=True),
+                plain_ms=cuda_ms(plain_fn, n=n_plain))
+
+
 def max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
 def synthetic_problem(frames, device, opts, *, num_verts, dof_per_hand,
                       model_seed, prior_components, prior_seed, beta_scale,
-                      pose0_scale):
+                      pose0_scale, num_shape_dirs=None):
     """A synthetic SMPL+H stage-ii problem with 46 markers, smooth random
     motion and a GMM prior on the 63 body dofs; numpy draws in the order of
-    bench.py and __graft_entry__._tiny_problem."""
+    bench.py and __graft_entry__._tiny_problem. With `opts.optimize_dynamics`
+    the truth also carries DMPL coefficients, drawn after the rest from the
+    same rng: dmpl[0] ~ N(0, 0.3^2), dmpl[t] = 0.97 dmpl[t-1] + N(0, 0.03^2);
+    the observations then come from per-frame shape coefficients
+    betas + dmpl[t]."""
     import torch
     from moshpp_torch.models import make_synthetic_model
     from moshpp_torch.ops.surface import vertex_normals
@@ -119,7 +164,8 @@ def synthetic_problem(frames, device, opts, *, num_verts, dof_per_hand,
 
     rng = np.random.default_rng(0)
     model = make_synthetic_model("smplh", num_verts=num_verts, seed=model_seed,
-                                 dof_per_hand=dof_per_hand, device=device)
+                                 dof_per_hand=dof_per_hand,
+                                 num_shape_dirs=num_shape_dirs, device=device)
     prior = make_gmm_prior(dim=63, num_components=prior_components,
                            seed=prior_seed, scale=0.3, device=device)
     V = model.v_template.shape[0]
@@ -136,8 +182,15 @@ def synthetic_problem(frames, device, opts, *, num_verts, dof_per_hand,
     for t in range(1, frames):
         poses[t] = 0.97 * poses[t - 1] + rng.normal(size=P).astype(np.float32) * 0.02
     trans = np.cumsum(rng.normal(size=(frames, 3)) * 0.005, 0).astype(np.float32)
+    dmpl = np.zeros((frames, opts.num_dmpls if opts.optimize_dynamics else 0),
+                    np.float32)
+    if dmpl.shape[1]:
+        dmpl[0] = rng.normal(size=dmpl.shape[1]) * 0.3
+        for t in range(1, frames):
+            dmpl[t] = 0.97 * dmpl[t - 1] + rng.normal(size=dmpl.shape[1]) * 0.03
     prob = prepare_stageii_problem(model, betas, latents, opts, device=device)
-    x_true = torch.as_tensor(np.concatenate([trans, poses], 1), device=device)
+    x_true = torch.as_tensor(np.concatenate([trans, poses, dmpl], 1),
+                             device=device)
     obs = simulate_markers(prob, opts, x_true)
     mask = torch.ones((frames, MARKERS), dtype=torch.bool, device=device)
     return dict(model=model, prior=prior, betas=bt, opts=opts, prob=prob,
@@ -156,6 +209,19 @@ def bench_problem(frames, device):
         prior_seed=1, beta_scale=0.4, pose0_scale=0.15)
 
 
+def dmpl_problem(frames, device):
+    """The bench problem with 8 DMPL coefficients a frame: 24 shape dirs
+    (16 betas, DMPLs in columns 16-23; the model's random draws differ from
+    the bench model's), optimize_dynamics, D = 3 + 114 + 8 = 125."""
+    from moshpp_torch.pipeline.stageii import StageIIOptions
+    return synthetic_problem(
+        frames, device, StageIIOptions(maxiter=100, smoothing_sweeps=2,
+                                       optimize_fingers=True,
+                                       optimize_dynamics=True, num_dmpls=8),
+        num_verts=6890, dof_per_hand=24, model_seed=3, prior_components=8,
+        prior_seed=1, beta_scale=0.4, pose0_scale=0.15, num_shape_dirs=24)
+
+
 def parity_problem(frames, device):
     """The reference's quality-parity problem (__graft_entry__.py
     dryrun_multichip: _tiny_problem(num_verts=600, markers=46,
@@ -167,21 +233,24 @@ def parity_problem(frames, device):
         prior_seed=2, beta_scale=0.3, pose0_scale=0.12)
 
 
-def phase_kernels(bp, records):
-    """Phase 2: every kernel against its plain version at main-path shapes."""
+def check_marker_kernels(bp, records, phase):
+    """The fk_smalls and marker_rows variants of the problem's path (E=0 or
+    E-carrying) against their plain versions at its shapes, and their
+    times."""
     import torch
     from moshpp_torch.ops import marker_jac as mj
-    from moshpp_torch.pipeline import stageii
-    from moshpp_torch.solver import gauss_newton, pcg
 
-    prob, model, tables = bp["prob"], bp["prob"].sub_model, bp["prob"].tables
-    theta, trans = mj._theta_trans(model, tables, bp["x_true"])
-    log(f"phase 2: theta {tuple(theta.shape)}, M={tables.num_markers}, "
-        f"D={tables.dof}, featN={tables.feat_n}")
+    model, tables = bp["prob"].sub_model, bp["prob"].tables
+    theta, trans, extra = mj.kernel_inputs(model, tables, bp["x_true"])
+    ext = extra is not None
+    log(f"phase {phase}: theta {tuple(theta.shape)}, M={tables.num_markers}, "
+        f"E={tables.n_extra}, D={tables.dof}, featN={tables.feat_n}")
 
-    for with_jac, name in ((True, mj.FK_JAC), (False, mj.FK_SIM)):
-        k = mj.fk_smalls(theta, tables, with_jac)
-        p = mj.fk_smalls_plain(theta, tables, with_jac)
+    sms = {}
+    for with_jac in (True, False):
+        name = mj._names(with_jac, ext)[0]
+        k = mj.fk_smalls(theta, tables, with_jac, extra)
+        p = mj.fk_smalls_plain(theta, tables, with_jac, extra)
         torch.cuda.synchronize()
         errs = {f: max_err(a, b) for f, a, b in zip(k._fields, k, p)
                 if a is not None}
@@ -190,18 +259,17 @@ def phase_kernels(bp, records):
         assert max(errs.values()) <= TOL_SMALLS * scale, (name, errs)
         records[name] = dict(
             max_abs_err=max(errs.values()),
-            ms=cuda_ms(lambda: mj.fk_smalls(theta, tables, with_jac)),
-            plain_ms=cuda_ms(lambda: mj.fk_smalls_plain(theta, tables,
-                                                        with_jac)))
-        if with_jac:
-            sm_jac = k
-        else:
-            sm_sim = k
+            **timed(lambda: mj.fk_smalls(theta, tables, with_jac, extra),
+                    lambda: mj.fk_smalls_plain(theta, tables, with_jac,
+                                               extra)))
+        if "datr" in errs:
+            records[name]["datr_max_abs_err"] = errs["datr"]
+        sms[with_jac] = k
 
-    for with_jac, name, sm in ((True, mj.ROWS_JAC, sm_jac),
-                               (False, mj.ROWS_SIM, sm_sim)):
-        sim_k, jm_k = mj.marker_rows(sm, trans, tables, with_jac)
-        sim_p, jm_p = mj.marker_rows_plain(sm, trans, tables, with_jac)
+    for with_jac in (True, False):
+        name, sm = mj._names(with_jac, ext)[1], sms[with_jac]
+        sim_k, jm_k = mj.marker_rows(sm, trans, tables, with_jac, extra)
+        sim_p, jm_p = mj.marker_rows_plain(sm, trans, tables, with_jac, extra)
         torch.cuda.synchronize()
         e_sim = max_err(sim_k, sim_p)
         e = e_sim
@@ -220,14 +288,24 @@ def phase_kernels(bp, records):
             log(f"  {name}: sim err {e_sim:.3g} m")
         records[name] = dict(
             max_abs_err=e,
-            ms=cuda_ms(lambda: mj.marker_rows(sm, trans, tables, with_jac)),
-            plain_ms=cuda_ms(lambda: mj.marker_rows_plain(sm, trans, tables,
-                                                          with_jac), n=2))
+            **timed(lambda: mj.marker_rows(sm, trans, tables, with_jac, extra),
+                    lambda: mj.marker_rows_plain(sm, trans, tables, with_jac,
+                                                 extra), n_plain=2))
         torch.cuda.empty_cache()
 
-    # the direction kernel on B from the real assembly at the rigid init
-    opts = bp["opts"]
+
+def check_direction(bp, records, suffix=""):
+    """The direction kernel against its plain version at the problem's D:
+    on B from the real assembly at the rigid init and on synthetic systems
+    of the same shape. Records its entries under `dogleg_direction<suffix>`
+    ("" on the E=0 path, "@D125" on the DMPL path)."""
+    import torch
+    from moshpp_torch.pipeline import stageii
+    from moshpp_torch.solver import gauss_newton, pcg
+
+    prob, opts = bp["prob"], bp["opts"]
     F = bp["obs"].shape[0]
+    P, E = prob.sub_model.pose_dof, prob.tables.n_extra
     maskf = bp["mask"].to(torch.float32)
     x0 = stageii.rigid_init(prob, opts, bp["obs"], maskf)
     system = stageii.make_stageii_system(prob, opts, bp["prior"], "smplh")
@@ -236,16 +314,22 @@ def phase_kernels(bp, records):
            "wt_data": opts.wt("data") * 46.0 / n_obs.clamp(min=1.0),
            "anneal": torch.ones(F, device=x0.device),
            "wt_pose_scale": torch.full((F,), 10.0, device=x0.device),
-           "velo_anchor": torch.zeros_like(x0[:, 3:]),
+           "velo_anchor": torch.zeros_like(x0[:, 3:3 + P]),
            "velo_on": torch.zeros(F, device=x0.device)}
+    if E:
+        aux.update(extra_anchor=torch.zeros_like(x0[:, 3 + P:]),
+                   extra_on=torch.zeros(F, device=x0.device))
     _, g, B = system.system_fn(x0, aux)
+    D = g.shape[1]
     _, step2 = stageii._param_masks(prob.sub_model, opts, "smplh", x0.device)
     pmask = step2.expand_as(g).contiguous()
     g = (g * pmask).contiguous()
     plin = torch.zeros_like(g)
     delta = torch.full((F,), 0.5, device=g.device)
+    log(f"  dogleg_direction{suffix}: F={F}, D={D}, B takes {D * D * 4} B "
+        f"of shared memory a frame")
 
-    # (i) synthetic systems of the main-path shape (pcg.direction_test_system:
+    # (i) synthetic systems of the path's shape (pcg.direction_test_system:
     # all three dogleg branches, warm starts taken and refused, masked
     # unknowns) at Jacobi-scaled condition ~5, ~1e2 and ~1e3. The kernel is
     # held to the plain version run in float64 on the same inputs, within
@@ -263,23 +347,23 @@ def phase_kernels(bp, records):
             e_k, e_p = max_err(k.double(), r), max_err(p.double(), r)
             if nm == "p":
                 dist = (e_k, e_p)
-            line = (f"  dogleg_direction {tag} {nm}: |kernel-f64| {e_k:.3g}, "
-                    f"|plain f32-f64| {e_p:.3g}, |f64| max "
+            line = (f"  dogleg_direction{suffix} {tag} {nm}: |kernel-f64| "
+                    f"{e_k:.3g}, |plain f32-f64| {e_p:.3g}, |f64| max "
                     f"{float(r.abs().max()):.3g}")
             if elementwise:
                 rtol, atol = ((TOL_PRED_RTOL, 1e-6) if nm == "pred"
                               else (TOL_DIR_RTOL, TOL_DIR_ATOL))
                 bad = int(((k - p).abs() > atol + rtol * p.abs()).sum())
                 line += f"; vs plain f32 {bad} of {k.numel()} outside"
-                assert bad == 0, ("dogleg_direction", tag, nm)
+                assert bad == 0, ("dogleg_direction", suffix, tag, nm)
             log(line)
             assert e_k <= TOL_DIR_VS_F64 * e_p + 1e-6 * float(r.abs().max()), (
-                "dogleg_direction", tag, nm)
+                "dogleg_direction", suffix, tag, nm)
         return dist
 
     errs = []
     for cond in (5.0, 1e2, 1e3):
-        sys_args = pcg.direction_test_system(F, g.shape[1], cond, seed=1,
+        sys_args = pcg.direction_test_system(F, D, cond, seed=1,
                                              device=g.device)
         for iters in (opts.cg_iters, opts.cg_iters_polish):
             e_k, e_p = held_to_f64(
@@ -290,7 +374,7 @@ def phase_kernels(bp, records):
                                            iters, 1e-8),
                 elementwise=cond == 5.0)
             errs.append(e_k)
-            records[f"dogleg_direction cond {cond:g} @{iters}"] = dict(
+            records[f"dogleg_direction{suffix} cond {cond:g} @{iters}"] = dict(
                 kernel_vs_f64=e_k, plain_f32_vs_f64=e_p)
         del sys_args
 
@@ -319,9 +403,9 @@ def phase_kernels(bp, records):
             # g.p relative to |g||p|: a step that goes uphill in the model
             uphill = float(((g * p).sum(-1) / (
                 torch.linalg.vector_norm(g, dim=-1) * norm + 1e-30)).max())
-            log(f"  dogleg_direction iters={iters} (real B, {who}): |p| max "
-                f"{float(norm.max()):.4g} (radius 0.5), pred vs own step rel "
-                f"{rel:.3g}, max cos(g, p) {uphill:.3g}, min pred "
+            log(f"  dogleg_direction{suffix} iters={iters} (real B, {who}): "
+                f"|p| max {float(norm.max()):.4g} (radius 0.5), pred vs own "
+                f"step rel {rel:.3g}, max cos(g, p) {uphill:.3g}, min pred "
                 f"{float(pred.min()):.4g}")
             assert torch.isfinite(p).all() and torch.isfinite(pred).all(), who
             assert float(norm.max()) <= 0.5 * (1 + 1e-5), (who, "radius")
@@ -331,19 +415,20 @@ def phase_kernels(bp, records):
                                             iters, 1e-8)
         held_to_f64(f"iters={iters} (real B)", outs["kernel"], outs["plain"],
                     out_64)
-        records[f"dogleg_direction@{iters}"] = dict(
-            ms=cuda_ms(lambda: pcg.dogleg_direction_batched(*args)),
-            plain_ms=cuda_ms(lambda: pcg.dogleg_direction_plain(*args), n=2))
-    records["dogleg_direction"] = dict(
-        max_abs_err=max(errs), **records[f"dogleg_direction@{opts.cg_iters}"])
+        records[f"dogleg_direction{suffix}@{iters}"] = timed(
+            lambda: pcg.dogleg_direction_batched(*args),
+            lambda: pcg.dogleg_direction_plain(*args), n_plain=2)
+    records[f"dogleg_direction{suffix}"] = dict(
+        max_abs_err=max(errs),
+        **records[f"dogleg_direction{suffix}@{opts.cg_iters}"])
 
 
 def solve_both(bp, opts, floor: bool):
     """Solve one problem on the CPU (plain versions) and on the card
     (kernels); the mean marker errors and the largest difference of any
-    fitted marker coordinate (wander), in mm. With `floor`, also the wander
-    between the CPU solve and a second CPU solve whose observations differ
-    by 1e-7 m: the solve's own sensitivity to rounding."""
+    fitted marker coordinate (wander), in mm. With `floor`, also the largest
+    wander between the CPU solve and CPU solves whose observations differ by
+    1e-7 m (FLOOR_SEEDS): the solve's own sensitivity to rounding."""
     import torch
     from moshpp_torch.pipeline import stageii
 
@@ -375,41 +460,45 @@ def solve_both(bp, opts, floor: bool):
                max_wander_mm=wander(res_g.markers_sim, res_c.markers_sim),
                cpu_s=t_cpu, card_s=t_gpu)
     if floor:
-        gen = torch.Generator().manual_seed(7)
-        noise = 1e-7 * torch.randn(bp["obs"].shape, generator=gen)
-        res_n = cpu_solve(bp["obs"] + noise)
-        out["cpu_floor_wander_mm"] = wander(res_n.markers_sim,
-                                            res_c.markers_sim)
+        floors = []
+        for seed in FLOOR_SEEDS:
+            gen = torch.Generator().manual_seed(seed)
+            noise = 1e-7 * torch.randn(bp["obs"].shape, generator=gen)
+            res_n = cpu_solve(bp["obs"] + noise)
+            floors.append(wander(res_n.markers_sim, res_c.markers_sim))
+        out["cpu_floor_wanders_mm"] = floors
+        out["cpu_floor_wander_mm"] = max(floors)
     assert np.isfinite(out["err_cpu_mm"]) and np.isfinite(out["err_card_mm"])
     return out
 
 
-def phase_parity(report):
-    """Phase 3: the same problems solved on the CPU and on the card.
+def phase_parity(report, phase, problems):
+    """Phases 3 and 3b: the same problems solved on the CPU and on the card.
 
-    Both must meet the mean bar. The reference parity problem runs at the
-    reference's own size and settings (F=64, tight tolerances, where the
-    JAX package measured 0.1-0.35 mm of wander between two of its own
-    solves) and must meet the 0.6 mm wander bar. On the bench problem at
-    F=256 that bar does not hold even between two solves of the JAX package
-    (PERF.md), so its wander must stay within the larger of 0.6 mm and
-    FLOOR_FACTOR times the CPU's own floor measured in the same run (two
-    CPU solves 1e-7 m apart in the observations)."""
-    for name, make, frames, polish in (
-            ("reference parity problem", parity_problem, 64, {}),
-            ("bench problem", bench_problem, PARITY_FRAMES,
-             dict(polish_solver="pcg"))):
+    Each entry of `problems` is (name, make, frames, floor). All must meet
+    the mean bar. The reference parity problem runs at the reference's own
+    size and settings (F=64, tight tolerances, where the JAX package
+    measured 0.1-0.35 mm of wander between two of its own solves) and must
+    meet the 0.6 mm wander bar. On the bench problem at F=256 that bar does
+    not hold even between two solves of the JAX package (PERF.md), so its
+    wander, and the DMPL problem's (`floor`), must stay within the larger of
+    0.6 mm and FLOOR_FACTOR times the CPU's own floor measured in the same
+    run (the largest wander between the CPU solve and CPU solves 1e-7 m
+    apart in the observations, one per FLOOR_SEEDS). Problems with a floor
+    polish through PCG on both sides."""
+    for name, make, frames, floor_gate in problems:
         bp = make(frames, "cpu")
-        bench = make is bench_problem
+        polish = dict(polish_solver="pcg") if floor_gate else {}
         r = solve_both(bp, dataclasses.replace(bp["opts"], **polish),
-                       floor=bench)
+                       floor=floor_gate)
         r["wander_limit_mm"] = PARITY_WANDER_MM
         floor = ""
-        if bench:
+        if floor_gate:
             r["wander_limit_mm"] = max(
                 PARITY_WANDER_MM, FLOOR_FACTOR * r["cpu_floor_wander_mm"])
-            floor = f", cpu-vs-cpu floor {r['cpu_floor_wander_mm']:.4f} mm"
-        log(f"phase 3: {name}, F={frames}: mean marker err cpu "
+            floor = (f", cpu-vs-cpu floor {r['cpu_floor_wander_mm']:.4f} mm "
+                     f"(max of {[round(w, 4) for w in r['cpu_floor_wanders_mm']]})")
+        log(f"phase {phase}: {name}, F={frames}: mean marker err cpu "
             f"{r['err_cpu_mm']:.4f} mm, card {r['err_card_mm']:.4f} mm, max "
             f"wander {r['max_wander_mm']:.4f} mm{floor}, limit "
             f"{r['wander_limit_mm']:.4f} mm (cpu {r['cpu_s']:.1f} s, card "
@@ -419,8 +508,10 @@ def phase_parity(report):
         assert r["max_wander_mm"] <= r["wander_limit_mm"], r
 
 
-def phase_slice(bp, report):
-    """Phase 4: the main path at the bench protocol."""
+def phase_slice(bp, report, phase, names):
+    """Phases 4 and 4b: a path at the bench protocol, F=FRAMES. Every kernel
+    in `names` must launch in the counted solve, and no plain version may
+    run on CUDA."""
     import torch
     from moshpp_torch import kernels
     from moshpp_torch.models import lbs_forward
@@ -435,7 +526,7 @@ def phase_slice(bp, report):
 
     t0 = time.perf_counter()
     res = solve()                                          # warm-up
-    log(f"phase 4: warm-up solve {time.perf_counter() - t0:.2f} s")
+    log(f"phase {phase}: warm-up solve {time.perf_counter() - t0:.2f} s")
     times = []
     for i in range(TIMED_SOLVES):
         if i == TIMED_SOLVES - 1:
@@ -449,29 +540,44 @@ def phase_slice(bp, report):
     err_mm = float(res.data_err.mean()) * 1e3
 
     model, betas = bp["model"], bp["betas"]
+    P = model.pose_dof
     sub = np.linspace(0, FRAMES - 1, 64).astype(int)
-    v_true = lbs_forward(model, bp["x_true"][sub, 3:], betas,
-                         bp["x_true"][sub, :3])
-    v_sol = lbs_forward(model, res.pose[sub], betas, res.trans[sub])
+    x_true = bp["x_true"][sub]
+    E = x_true.shape[1] - 3 - P
+
+    def shape(extra):
+        """The subject's betas, with per-frame DMPLs appended."""
+        return torch.cat([betas.expand(len(sub), -1), extra], 1) if E else betas
+
+    v_true = lbs_forward(model, x_true[:, 3:3 + P], shape(x_true[:, 3 + P:]),
+                         x_true[:, :3])
+    v_sol = lbs_forward(model, res.pose[sub], shape(res.extra[sub]),
+                        res.trans[sub])
     v2v = torch.linalg.vector_norm(v_sol - v_true, dim=-1)
     body_vert = torch.argmax(model.weights, dim=1) < 1 + model.info.body_pose_dof // 3
     v2v_body = float(v2v[:, body_vert].mean()) * 1e3
     v2v_hands = float(v2v[:, ~body_vert].mean()) * 1e3
     fps = FRAMES / dt
-    log(f"phase 4: F={FRAMES} solve {dt:.3f} s median of "
+    out = dict(frames=FRAMES, solve_s=times, median_s=dt, frames_per_s=fps,
+               mean_marker_err_mm=err_mm, v2v_body_mm=v2v_body,
+               v2v_hands_mm=v2v_hands, host_syncs=res.host_syncs,
+               launches=launches, plain_cuda=plain_cuda)
+    dmpl = ""
+    if E:
+        out["dmpl_rms"] = float(torch.sqrt(torch.mean(
+            (res.extra - bp["x_true"][:, 3 + P:]) ** 2)))
+        dmpl = f"; DMPL rms err {out['dmpl_rms']:.4f}"
+    log(f"phase {phase}: F={FRAMES} solve {dt:.3f} s median of "
         f"{[round(t, 3) for t in times]} -> {fps:.1f} frames/s; mean marker "
         f"err {err_mm:.4f} mm; v2v body {v2v_body:.4f} mm, hands "
-        f"{v2v_hands:.4f} mm; host syncs per solve {res.host_syncs}")
+        f"{v2v_hands:.4f} mm{dmpl}; host syncs per solve {res.host_syncs}")
     log(f"  launches in one solve: {launches}; plain versions on CUDA: "
         f"{plain_cuda}")
-    report["slice"] = dict(frames=FRAMES, solve_s=times, median_s=dt,
-                           frames_per_s=fps, mean_marker_err_mm=err_mm,
-                           v2v_body_mm=v2v_body, v2v_hands_mm=v2v_hands,
-                           host_syncs=res.host_syncs, launches=launches,
-                           plain_cuda=plain_cuda)
+    report[f"slice {phase}"] = out
     assert torch.isfinite(res.markers_sim).all() and torch.isfinite(res.pose).all()
     assert res.markers_sim.shape == (FRAMES, MARKERS, 3)
-    for name in TPU_KERNELS:
+    assert res.extra.shape == (FRAMES, E) and torch.isfinite(res.extra).all()
+    for name in names:
         assert launches.get(name, 0) > 0, f"{name} never launched in the solve"
     assert sum(plain_cuda.values()) == 0, plain_cuda
     assert err_mm <= MAX_MEAN_ERR_MM, err_mm
@@ -503,8 +609,13 @@ def main():
         f"{time.perf_counter() - t0:.1f} s (nvcc {info.seconds:.1f} s) -> "
         f"{os.path.relpath(info.path, REPO)}")
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  " + line.strip())
+        m = re.search(r"(fk_smalls|marker_rows|dogleg_direction)_kernel"
+                      r"(?:ILb(\d)ELb(\d)E)?", line)
+        if "Compiling entry" in line and m:  # from the mangled name
+            log(f"  {m.group(1)}" + (f"<jac={m.group(2)}, ext={m.group(3)}>"
+                                     if m.group(2) else ""))
+        elif "registers" in line or "spill" in line:
+            log("    " + line.strip())
 
     report = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": info.seconds}
@@ -514,18 +625,38 @@ def main():
     log(f"problem: {bp['model'].v_template.shape[0]} verts, J="
         f"{bp['model'].num_joints}, P={bp['model'].pose_dof}, "
         f"M={MARKERS}, F={FRAMES} ({time.perf_counter() - t0:.1f} s)")
-    phase_kernels(bp, records)
+    check_marker_kernels(bp, records, "2")
+    check_direction(bp, records)
     torch.cuda.empty_cache()
-    phase_parity(report)
-    launches = phase_slice(bp, report)
+    phase_parity(report, "3", (
+        ("reference parity problem", parity_problem, 64, False),
+        ("bench problem", bench_problem, PARITY_FRAMES, True)))
+    launches = phase_slice(bp, report, "4", TPU_KERNELS)
+    del bp
+    torch.cuda.empty_cache()
+
+    # ---- the DMPL path: phases 2b-4b -----------------------------------------
+    t0 = time.perf_counter()
+    dp = dmpl_problem(FRAMES, "cuda")
+    log(f"DMPL problem: E={dp['prob'].tables.n_extra}, D="
+        f"{dp['prob'].tables.dof}, F={FRAMES} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check_marker_kernels(dp, records, "2b")
+    check_direction(dp, records, "@D125")
+    torch.cuda.empty_cache()
+    phase_parity(report, "3b", (
+        ("DMPL problem", dmpl_problem, PARITY_FRAMES, True),))
+    launches_ext = phase_slice(dp, report, "4b",
+                               [*EXT_KERNELS, "dogleg_direction"])
 
     kern = []
-    for name, (src, tpu) in TPU_KERNELS.items():
+    for name, (src, tpu) in {**TPU_KERNELS, **EXT_KERNELS}.items():
         r = records[name]
+        n = (launches_ext if name in EXT_KERNELS else launches)[name]
         kern.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": launches[name],
+                     "replaces": tpu, "launches": n,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"]})
+                     "ms_device": r["ms_device"], "plain_ms": r["plain_ms"]})
     report["kernels"] = kern
     report["timings"] = records
     out_dir = os.path.join(REPO, "chiprun_out")

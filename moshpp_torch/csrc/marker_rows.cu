@@ -1,16 +1,25 @@
-// marker_rows<WITH_JAC>: simulated markers and, with the Jacobian, their
-// exact (trans, pose) Jacobian rows.
+// marker_rows<WITH_JAC, EXT>: simulated markers and, with the Jacobian,
+// their exact (trans, pose, extras) Jacobian rows.
 //
-// Replaces the Pallas TPU kernels `_marker_kernel` (WITH_JAC) and
-// `_sim_marker_kernel` (primal only) of moshpp_tpu/ops/pallas_marker_jac.py
-// (bodies `_marker_impl` and `_sim_marker_impl`). Plain version:
-// moshpp_torch/ops/marker_jac.marker_rows_plain.
+// Replaces the Pallas TPU kernels of moshpp_tpu/ops/pallas_marker_jac.py
+// (bodies `_marker_impl` and `_sim_marker_impl`):
+//   <true, false>  `_marker_kernel`       <false, false>  `_sim_marker_kernel`
+//   <true, true>   `_marker_kernel_ext`   <false, true>   `_sim_marker_kernel_ext`
+// Plain version: moshpp_torch/ops/marker_jac.marker_rows_plain.
 //
 // Per (frame, marker): skin the marker's 3 frame vertices (pose blend,
 // weighted transforms), rebuild the marker in its local frame, and with the
 // Jacobian push the per-vertex pose columns
 //   J[v, :, (j,t)] = Wrot_{j,t} S_vj + s_vj Wtr_{j,t} + T_rot dvp_{j,t}
 // through the frame's hand-derived 3x3 blocks and the hand-PCA chain.
+//
+// With EXT the problem has E <= 16 extra shape dims x_e: the rest position
+// of each frame vertex moves by sum_e x_e dv_e before skinning (fk_smalls
+// already moved the joints), and with the Jacobian each vertex gets E more
+// columns d v/dx_e = sum_j w_j datr_e[j] + T_rot dv_e, folded through the
+// same local-frame blocks as the pose columns: the jm row grows from
+// 3 x (3+P) to 3 x (3+P+E) floats. The E = 0 instantiations carry none of
+// this code, and their shared-memory layout is unchanged.
 //
 // Precision: the frame vertices and the local frame (marker position and
 // its 3x3 derivative blocks) are computed in float64 from the float32
@@ -45,11 +54,14 @@ using namespace moshpp;
 constexpr int kThreads = 128;
 constexpr int kFramesPerBlock = 16;
 constexpr int kSmall = 80;   // vp 9, Trot 27, dms 27, vsh 9, cf 3 (floats)
+constexpr int kMaxExtra = 16;
 
-// Offsets (in floats) of the dynamic shared-memory regions.
+// Offsets (in floats) of the dynamic shared-memory regions; the extras
+// regions are empty when E = 0.
 struct Layout {
-  int w, s, grot, atr, feat, wrot, wtr, dr, z, S, U, small, total;
-  __host__ __device__ Layout(bool jac, int J, int featN) {
+  int w, s, grot, atr, feat, wrot, wtr, dr, z, S, U, small, dv, ex, datr, Je,
+      UE, total;
+  __host__ __device__ Layout(bool jac, int J, int featN, int E) {
     int o = 0;
     w = o;    o += 3 * J;
     s = o;    o += jac ? 3 * J : 0;
@@ -63,6 +75,11 @@ struct Layout {
     S = o;    o += jac ? 9 * J : 0;
     U = o;    o += jac ? 9 * J : 0;
     small = o; o += kSmall;
+    dv = o;   o += 9 * E;               // [k][e][c] the marker's directions
+    ex = o;   o += E;                   // the frame's extras
+    datr = o; o += jac ? 3 * E * J : 0;  // [e][j][a]
+    Je = o;   o += jac ? 9 * E : 0;      // [e][k][a] vertex columns
+    UE = o;   o += jac ? 3 * E : 0;      // [c][e] folded marker columns
     total = o;
   }
 };
@@ -144,7 +161,7 @@ __device__ void local_frame(const double v[3][3], const float cf[3],
   }
 }
 
-template <bool WITH_JAC>
+template <bool WITH_JAC, bool EXT>
 __global__ void __launch_bounds__(kThreads)
 marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
                    const float* __restrict__ grot,
@@ -160,14 +177,17 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
                    const float* __restrict__ cf,
                    const unsigned long long* __restrict__ ancmask,
                    const float* __restrict__ hc, float* __restrict__ sim,
-                   float* __restrict__ jm) {
+                   float* __restrict__ jm, int E,
+                   const float* __restrict__ extra,
+                   const float* __restrict__ datr,
+                   const float* __restrict__ dv) {
   extern __shared__ float smem[];
   __shared__ unsigned long long s_anc[64];
   __shared__ double s_vpd[9];    // [k][c] posed rest position, float64
   __shared__ double s_Td[36];    // [k][12]: T_rot (9) then T_tr (3), float64
   const int J3 = 3 * J;
   const int nhand = J3 - body_dof;   // full-pose hand columns
-  const Layout L(WITH_JAC, J, featN);
+  const Layout L(WITH_JAC, J, featN, EXT ? E : 0);
   float* s_w = smem + L.w;
   float* s_s = smem + L.s;
   float* s_grot = smem + L.grot;
@@ -184,6 +204,11 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
   float* s_dms = s_Trot + 27;            // [k][c][d]
   float* s_vsh = s_dms + 27;             // [k][c]
   float* s_cf = s_vsh + 9;               // [3]
+  float* s_dv = smem + L.dv;
+  float* s_ex = smem + L.ex;
+  float* s_datr = smem + L.datr;
+  float* s_Je = smem + L.Je;
+  float* s_UE = smem + L.UE;
 
   const int m = blockIdx.y;
   const float* pd = pd3 + static_cast<size_t>(m) * 9 * featN;
@@ -202,6 +227,10 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
   }
   if (tid < 9) s_vsh[tid] = vsh3[m * 9 + tid];
   if (tid < 3) s_cf[tid] = cf[m * 3 + tid];
+  if constexpr (EXT) {
+    for (int i = tid; i < 9 * E; i += blockDim.x)
+      s_dv[i] = dv[static_cast<size_t>(m) * 9 * E + i];
+  }
 
   const int f_begin = static_cast<int>(blockIdx.x) * kFramesPerBlock;
   const int f_end = min(F, f_begin + kFramesPerBlock);
@@ -220,6 +249,14 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
       }
       for (int i = tid; i < 9 * J; i += blockDim.x) s_wtr[i] = wtr[fJ * 9 + i];
     }
+    if constexpr (EXT) {
+      for (int i = tid; i < E; i += blockDim.x)
+        s_ex[i] = extra[static_cast<size_t>(f) * E + i];
+      if (WITH_JAC) {
+        for (int i = tid; i < 3 * E * J; i += blockDim.x)
+          s_datr[i] = datr[fJ * 3 * E + i];
+      }
+    }
     __syncthreads();
 
     // ---- pose blend vp[k][c] and the weighted transforms T_rot, T_tr --------
@@ -229,6 +266,12 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
         acc += static_cast<double>(pd[r * featN + p]) * s_feat[p];
       acc = warp_sum(acc);
       if (lane == 0) {
+        if constexpr (EXT) {
+          // the frame's extras move the rest position: sum_e x_e dv_e
+          const int k = r / 3, c = r % 3;
+          for (int e = 0; e < E; ++e)
+            acc += static_cast<double>(s_ex[e]) * s_dv[(k * E + e) * 3 + c];
+        }
         s_vpd[r] = s_vsh[r] + acc;
         s_vp[r] = static_cast<float>(s_vsh[r] + acc);
       }
@@ -274,6 +317,20 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
                                    s_grot[j * 9 + b * 3 + 1] * s_vp[k * 3 + 1] +
                                    s_grot[j * 9 + b * 3 + 2] * s_vp[k * 3 + 2] +
                                    s_atr[j * 3 + b];
+    }
+    if constexpr (EXT) {
+      // vertex columns Je[e][k][a] = sum_j w[k][j] datr[e][j][a]
+      // + sum_c T_rot[k][a][c] dv[k][e][c]; counted from the last thread,
+      // so thread 0 (busy with the local frame) takes none of them
+      for (int it = blockDim.x - 1 - tid; it < 9 * E; it += blockDim.x) {
+        const int e = it / 9, k = (it / 3) % 3, a = it % 3;
+        float acc = 0.f;
+        for (int j = 0; j < J; ++j)
+          acc = fmaf(s_w[k * J + j], s_datr[(e * J + j) * 3 + a], acc);
+        const float* Tr = s_Trot + k * 9 + a * 3;
+        const float* dk = s_dv + (k * E + e) * 3;
+        s_Je[it] = acc + Tr[0] * dk[0] + Tr[1] * dk[1] + Tr[2] * dk[2];
+      }
     }
     __syncthreads();
 
@@ -331,6 +388,20 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
       s_U[J3 + col] = U1;
       s_U[2 * J3 + col] = U2;
     }
+    if constexpr (EXT) {
+      // extra columns through the marker frame: UE[c][e]
+      // = sum_k sum_d dms[k][c][d] Je[e][k][d]
+      for (int it = blockDim.x - 1 - tid; it < 3 * E; it += blockDim.x) {
+        const int c = it / E, e = it % E;
+        float acc = 0.f;
+        for (int k = 0; k < 3; ++k) {
+          const float* dk = s_dms + k * 9 + c * 3;
+          const float* je = s_Je + (e * 3 + k) * 3;
+          acc += dk[0] * je[0] + dk[1] * je[1] + dk[2] * je[2];
+        }
+        s_UE[it] = acc;
+      }
+    }
     __syncthreads();
 
     // ---- jm row: trans identity, body columns, hand-PCA chain ---------------
@@ -347,7 +418,7 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
         v0 = s_U[d - 3];
         v1 = s_U[J3 + d - 3];
         v2 = s_U[2 * J3 + d - 3];
-      } else {
+      } else if (!EXT || d < D - E) {
         const float* hrow = hc + (d - 3 - body_dof) * nhand;
         const float* U0 = s_U + body_dof;
         v0 = v1 = v2 = 0.f;
@@ -357,12 +428,46 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
           v1 = fmaf(hv, U0[J3 + h], v1);
           v2 = fmaf(hv, U0[2 * J3 + h], v2);
         }
+      } else {
+        const int e = d - (D - E);
+        v0 = s_UE[e];
+        v1 = s_UE[E + e];
+        v2 = s_UE[2 * E + e];
       }
       row[d] = v0;
       row[D + d] = v1;
       row[2 * D + d] = v2;
     }
   }
+}
+
+template <bool EXT>
+cudaError_t launch(bool with_jac, dim3 grid, size_t bytes, cudaStream_t s,
+                   int F, int M, int J, int featN, int body_dof, int D,
+                   const float* grot, const float* atr, const float* feat,
+                   const float* wrot, const float* wtr, const float* dr,
+                   const float* trans, const float* w3, const float* s3,
+                   const float* vsh3, const float* pd3, const float* cf,
+                   const unsigned long long* ancmask, const float* hc,
+                   float* sim, float* jm, int E, const float* extra,
+                   const float* datr, const float* dv) {
+  cudaError_t err;
+  if (with_jac) {
+    err = allow_smem(marker_rows_kernel<true, EXT>, bytes);
+    if (err != cudaSuccess) return err;
+    marker_rows_kernel<true, EXT><<<grid, kThreads, bytes, s>>>(
+        F, M, J, featN, body_dof, D, grot, atr, feat, wrot, wtr, dr,
+        trans, w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm, E, extra, datr,
+        dv);
+  } else {
+    err = allow_smem(marker_rows_kernel<false, EXT>, bytes);
+    if (err != cudaSuccess) return err;
+    marker_rows_kernel<false, EXT><<<grid, kThreads, bytes, s>>>(
+        F, M, J, featN, body_dof, D, grot, atr, feat, nullptr,
+        nullptr, nullptr, trans, w3, nullptr, vsh3, pd3, cf, nullptr, nullptr,
+        sim, nullptr, E, extra, nullptr, dv);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -373,30 +478,25 @@ extern "C" int marker_rows_launch(
     const float* wrot, const float* wtr, const float* dr, const float* trans,
     const float* w3, const float* s3, const float* vsh3, const float* pd3,
     const float* cf, const unsigned long long* ancmask, const float* hc,
-    float* sim, float* jm, void* stream) {
-  if (F < 1 || M < 1 || M > 65535 || J < 1 || J > 64 ||
-      D != 3 + body_dof + hand_dof)
+    float* sim, float* jm, int E, const float* extra, const float* datr,
+    const float* dv, void* stream) {
+  if (F < 1 || M < 1 || M > 65535 || J < 1 || J > 64 || E < 0 ||
+      E > kMaxExtra || D != 3 + body_dof + hand_dof + E)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(with_jac != 0, J, featN);
+  const Layout L(with_jac != 0, J, featN, E);
   const size_t bytes = static_cast<size_t>(L.total) * sizeof(float);
   // frame tiles fastest: blocks resident on one SM tend to share a marker,
   // whose posedirs rows then stay in L1
   const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (with_jac) {
-    err = allow_smem(marker_rows_kernel<true>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    marker_rows_kernel<true><<<grid, kThreads, bytes, s>>>(
-        F, M, J, featN, body_dof, D, grot, atr, feat, wrot, wtr, dr,
-        trans, w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm);
-  } else {
-    err = allow_smem(marker_rows_kernel<false>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    marker_rows_kernel<false><<<grid, kThreads, bytes, s>>>(
-        F, M, J, featN, body_dof, D, grot, atr, feat, nullptr,
-        nullptr, nullptr, trans, w3, nullptr, vsh3, pd3, cf, nullptr, nullptr,
-        sim, nullptr);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err =
+      E > 0 ? launch<true>(with_jac != 0, grid, bytes, s, F, M, J, featN,
+                           body_dof, D, grot, atr, feat, wrot, wtr, dr, trans,
+                           w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm, E,
+                           extra, datr, dv)
+            : launch<false>(with_jac != 0, grid, bytes, s, F, M, J, featN,
+                            body_dof, D, grot, atr, feat, wrot, wtr, dr,
+                            trans, w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm,
+                            0, nullptr, nullptr, nullptr);
+  return static_cast<int>(err);
 }

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels: build, load and launch counts.
 
 The CUDA sources in `moshpp_torch/csrc/` are compiled at first use with
-`nvcc -gencode arch=compute_90a,code=sm_90a` into one shared library with a
-plain C interface, loaded with ctypes. The build directory
+`nvcc -gencode arch=compute_90a,code=sm_90a`, one nvcc per source started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes. The build directory
 (`moshpp_torch/kernels/build/`, git-ignored) is keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one loads.
 Nothing here runs at import time: the CPU-only tests import the package on
@@ -32,9 +33,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 LIB_NAME = "libmoshpp_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-lineinfo")
 
 
 @dataclasses.dataclass
@@ -110,16 +111,29 @@ def build() -> BuildInfo:
         return BuildInfo(lib, False, 0.0, log)
     out_dir.mkdir(parents=True, exist_ok=True)
     cus, _ = _sources()
-    tmp = out_dir / f"{LIB_NAME}.tmp{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(p) for p in cus]]
+    tag = f"tmp{os.getpid()}"
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    # one nvcc per source, all at once, then one link
+    objs = [out_dir / f"{p.stem}.{tag}.o" for p in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(o), str(p)]
+            for p, o in zip(cus, objs)]
+    cmds.append([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                 *[str(o) for o in objs]])
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    log = ""
+    for batch in (cmds[:-1], cmds[-1:]):
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in batch]
+        outs = [pr.communicate()[0] for pr in procs]
+        log += "".join(outs)
+        for c, pr, out in zip(batch, procs, outs):
+            if pr.returncode != 0:
+                raise RuntimeError(f"nvcc failed (rc={pr.returncode}):\n"
+                                   f"{' '.join(c)}\n{out[-8000:]}")
     seconds = time.perf_counter() - t0
-    log = r.stdout + r.stderr
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc={r.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log[-8000:]}")
+    for o in objs:
+        o.unlink()
     log_file.write_text(log)
     os.replace(tmp, lib)          # atomic: a concurrent loader sees all or none
     return BuildInfo(lib, True, seconds, log)
@@ -129,10 +143,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fk_smalls_launch": [_I, _P, _P, _P, _I, _P, _P, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _P],
+                         _P, _P, _P, _P, _P, _P,
+                         _I, _P, _P, _P, _P, _P, _P],
     "marker_rows_launch": [_I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _P, _P, _P, _P],
     "dogleg_direction_launch": [_I, _I, _I, ctypes.c_float, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P],
 }

@@ -267,8 +267,10 @@ def lbs_forward(model: SurfaceModel,
 
     verts = LBS(v_template + shapedirs·betas + posedirs·(R(fullpose)-I)) + trans
 
-    pose (N, pose_dof), betas (B',) shared by the batch, trans (N, 3) ->
-    verts (N, V, 3) (and posed joints (N, J, 3) with `want_joints`).
+    pose (N, pose_dof), betas (B',) shared by the batch or (N, B') per frame
+    (the rest joints and shaped vertices then vary per frame, as under the
+    JAX package's `vmap`), trans (N, 3) -> verts (N, V, 3) (and posed joints
+    (N, J, 3) with `want_joints`).
     """
     J = model.num_joints
     nb = betas.shape[-1]
@@ -276,10 +278,11 @@ def lbs_forward(model: SurfaceModel,
     N = fullpose.shape[0]
     rotmats = rodrigues(fullpose.reshape(N, J, 3))
 
+    n = "n" if betas.dim() == 2 else ""    # per-frame or shared betas
     v_shaped = model.v_template + torch.einsum(
-        "vcb,b->vc", model.shapedirs[..., :nb], betas)
+        f"vcb,{n}b->{n}vc", model.shapedirs[..., :nb], betas)
     joints = model.joint_template + torch.einsum(
-        "jcb,b->jc", model.joint_shapedirs[..., :nb], betas)
+        f"jcb,{n}b->{n}jc", model.joint_shapedirs[..., :nb], betas)
 
     if model.posedirs.shape[-1] and J > 1:
         eye = torch.eye(3, dtype=rotmats.dtype, device=rotmats.device)
@@ -289,7 +292,7 @@ def lbs_forward(model: SurfaceModel,
         v_posed = v_shaped.expand(N, -1, -1)
 
     G_rot, G_tr = fk_globals(joints, rotmats, model.parents)
-    A_tr = G_tr - torch.einsum("njab,jb->nja", G_rot, joints)
+    A_tr = G_tr - torch.einsum(f"njab,{n}jb->nja", G_rot, joints)
 
     w = effective_weights(model)
     T_rot = torch.einsum("vj,njab->nvab", w, G_rot)

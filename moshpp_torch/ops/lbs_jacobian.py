@@ -36,25 +36,40 @@ class JointSmalls(NamedTuple):
 
     grot (F, J, 3, 3), atr (F, J, 3), feat (F, J-1, 3, 3) = R - I of the
     non-root joints; with the Jacobian also wrot (F, J, 3, 3, 3) [a, d, t],
-    wtr (F, J, 3, 3) [a, t] and dr (F, J, 3, 3, 3) [a, b, t]."""
+    wtr (F, J, 3, 3) [a, t] and dr (F, J, 3, 3, 3) [a, b, t]; with the
+    Jacobian and E extra shape dims also datr (F, E, J, 3) = dA_tr/dx_e."""
     grot: torch.Tensor
     atr: torch.Tensor
     feat: torch.Tensor
     wrot: Optional[torch.Tensor] = None
     wtr: Optional[torch.Tensor] = None
     dr: Optional[torch.Tensor] = None
+    datr: Optional[torch.Tensor] = None
 
 
 def joint_smalls(theta: torch.Tensor, jnts: torch.Tensor,
-                 parents: Tuple[int, ...], with_jac: bool) -> JointSmalls:
-    """theta (F, J, 3) fullpose axis-angles, jnts (J, 3) shaped rest joints."""
+                 parents: Tuple[int, ...], with_jac: bool,
+                 extra: Optional[torch.Tensor] = None,
+                 djnt: Optional[torch.Tensor] = None,
+                 dtrel: Optional[torch.Tensor] = None) -> JointSmalls:
+    """theta (F, J, 3) fullpose axis-angles, jnts (J, 3) shaped rest joints.
+
+    With extra shape dims, extra (F, E) shifts the rest joints per frame
+    along djnt (J, E, 3), as the JAX kernels' `_frame_rest_geometry`; with
+    the Jacobian, datr is emitted in the closed form of `_smalls_impl`:
+    dA_tr_e[j] = sum over k on the root->j path of Q_k dtrel_e[k], minus
+    G_rot[j] djnt_e[j], with dtrel (J, E, 3) the parent-relative directions
+    and Q_k the global rotation of k's parent (identity at a root)."""
     F, J, _ = theta.shape
     if with_jac:
         R, dR = rodrigues_with_grad(theta)
     else:
         R, dR = rodrigues(theta), None
+    if extra is not None:
+        jnts = jnts + torch.einsum("fe,jec->fjc", extra, djnt)
+    f = "f" if extra is not None else ""   # per-frame or shared rest joints
     G_rot, G_tr = fk_globals(jnts, R, parents)
-    A_tr = G_tr - torch.einsum("fjab,jb->fja", G_rot, jnts)
+    A_tr = G_tr - torch.einsum(f"fjab,{f}jb->fja", G_rot, jnts)
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
     feat = (R[:, 1:] - eye).contiguous()
     if not with_jac:
@@ -66,23 +81,34 @@ def joint_smalls(theta: torch.Tensor, jnts: torch.Tensor,
     Q = torch.where(root[:, None, None], eye, G_rot[:, pidx])
     b = torch.where(root[:, None], torch.zeros_like(G_tr), G_tr[:, pidx])
     dRRt = torch.einsum("fjabt,fjcb->fjact", dR, R)
-    u = -torch.einsum("fjabt,jb->fjat", dRRt, t_rel)
+    u = -torch.einsum(f"fjabt,{f}jb->fjat", dRRt, t_rel)
     W_rot = torch.einsum("fjab,fjbct,fjdc->fjadt", Q, dRRt, Q)
     W_tr = (-torch.einsum("fjabt,fjb->fjat", W_rot, b)
             + torch.einsum("fjab,fjbt->fjat", Q, u))
+    datr = None
+    if extra is not None:
+        anc = torch.as_tensor(_ancestor_matrix(parents), device=R.device)
+        dG = torch.einsum("jk,fkab,keb->feja", anc, Q, dtrel)
+        datr = (dG - torch.einsum("fjab,jeb->feja", G_rot, djnt)).contiguous()
     return JointSmalls(G_rot.contiguous(), A_tr.contiguous(), feat,
-                       W_rot.contiguous(), W_tr.contiguous(), dR.contiguous())
+                       W_rot.contiguous(), W_tr.contiguous(), dR.contiguous(),
+                       datr)
 
 
 def skin_rows(sm: JointSmalls, w: torch.Tensor, s: torch.Tensor,
               vsh: torch.Tensor, pd: torch.Tensor, anc: torch.Tensor,
-              trans: torch.Tensor, with_jac: bool):
+              trans: torch.Tensor, with_jac: bool,
+              extra: Optional[torch.Tensor] = None,
+              dv: Optional[torch.Tensor] = None):
     """Posed vertices (F, I, 3), in float64, and with the Jacobian their
-    float32 full-pose Jacobian (F, I, 3, 3J) for I vertex rows.
+    float32 full-pose Jacobian (F, I, 3, 3J) for I vertex rows and, with
+    extra shape dims, their E extra columns (F, I, 3, E) (else None).
 
     w, s (I, J) skinning weights and w @ anc; vsh (I, 3) shaped rest
     positions; pd (I, 3, 9(J-1)) posedirs rows (width 0 without pose
-    blends); anc (J, J) ancestor mask; trans (F, 3).
+    blends); anc (J, J) ancestor mask; trans (F, 3); extra (F, E) shifts the
+    rest positions along dv (I, E, 3), and the extra columns are
+    sum_j w_j datr_e[j] + T_rot dv_e (`_marker_impl`).
 
     The positions are summed in float64 from the float32 inputs: a marker's
     local frame can be nearly degenerate, and its derivative then amplifies
@@ -91,19 +117,24 @@ def skin_rows(sm: JointSmalls, w: torch.Tensor, s: torch.Tensor,
     I = w.shape[0]
     featN = pd.shape[-1]
     f64 = torch.float64
+    vp64 = vsh.to(f64).expand(F, I, 3)
     if featN:
-        vp64 = vsh.to(f64) + torch.einsum("icp,fp->fic", pd.to(f64),
-                                          sm.feat.reshape(F, featN).to(f64))
-    else:
-        vp64 = vsh.to(f64).expand(F, I, 3)
+        vp64 = vp64 + torch.einsum("icp,fp->fic", pd.to(f64),
+                                   sm.feat.reshape(F, featN).to(f64))
+    if extra is not None:
+        vp64 = vp64 + torch.einsum("iec,fe->fic", dv.to(f64), extra.to(f64))
     w64 = w.to(f64)
     T_rot64 = torch.einsum("ij,fjac->fiac", w64, sm.grot.to(f64))
     T_tr64 = torch.einsum("ij,fja->fia", w64, sm.atr.to(f64))
     verts = (torch.einsum("fiac,fic->fia", T_rot64, vp64) + T_tr64
              + trans[:, None, :].to(f64))
     if not with_jac:
-        return verts, None
+        return verts, None, None
     vp, T_rot = vp64.to(w.dtype), T_rot64.to(w.dtype)
+    Je = None
+    if extra is not None:
+        Je = (torch.einsum("ij,feja->fiae", w, sm.datr)
+              + torch.einsum("fiac,iec->fiae", T_rot, dv))
     z = torch.einsum("fjbc,fic->fijb", sm.grot, vp) + sm.atr[:, None]
     S = torch.einsum("fikb,kj->fijb", w[None, :, :, None] * z, anc)
     Jf = (torch.einsum("fjabt,fijb->fiajt", sm.wrot, S)
@@ -112,7 +143,7 @@ def skin_rows(sm: JointSmalls, w: torch.Tensor, s: torch.Tensor,
         dvp = torch.einsum("icjab,fjabt->ficjt", pd.reshape(I, 3, J - 1, 3, 3),
                            sm.dr[:, 1:])
         Jf[:, :, :, 1:, :] += torch.einsum("fiac,ficjt->fiajt", T_rot, dvp)
-    return verts, Jf.reshape(F, I, 3, 3 * J)
+    return verts, Jf.reshape(F, I, 3, 3 * J), Je
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -192,7 +223,8 @@ def lbs_verts_and_jacobian(model: SurfaceModel,
     w = effective_weights(model)
     anc = torch.as_tensor(_ancestor_matrix(parents), device=w.device)
     pd = model.posedirs if J > 1 else model.posedirs[..., :0]
-    verts, Jfull = skin_rows(sm, w, w @ anc, v_shaped, pd, anc, trans, True)
+    verts, Jfull, _ = skin_rows(sm, w, w @ anc, v_shaped, pd, anc, trans,
+                                True)
     hc = model.hands_components if model.info.has_hands else None
     Jpose = hand_chain(Jfull, model.info.body_pose_dof, hc)
     V = verts.shape[1]

@@ -1,13 +1,20 @@
-"""Simulated markers and their exact (trans, pose) Jacobian on the H100.
+"""Simulated markers and their exact (trans, pose, extras) Jacobian on the
+H100.
 
-Port of `moshpp_tpu/ops/pallas_marker_jac.py` (E = 0: no extra shape dims).
-The five Pallas marker kernels become two hand-written CUDA kernels, each
-templated on whether it also emits the Jacobian chain:
+Port of `moshpp_tpu/ops/pallas_marker_jac.py` for up to
+`MAX_INLINE_EXTRAS` extra shape dims (DMPL soft-tissue coefficients or
+expressions riding shapedirs columns). The Pallas marker kernels become two
+hand-written CUDA kernels, each templated on whether it also emits the
+Jacobian chain and on whether the problem has extra dims:
 
-  `fk_smalls`    csrc/fk_smalls.cu    replaces `_smalls_kernel` and
-                                      `_sim_smalls_kernel`
-  `marker_rows`  csrc/marker_rows.cu  replaces `_marker_kernel` and
-                                      `_sim_marker_kernel`
+  `fk_smalls`    csrc/fk_smalls.cu    replaces `_smalls_kernel`,
+                                      `_sim_smalls_kernel` and, with
+                                      extras, `_smalls_kernel_ext`,
+                                      `_sim_smalls_kernel_ext`
+  `marker_rows`  csrc/marker_rows.cu  replaces `_marker_kernel`,
+                                      `_sim_marker_kernel` and, with
+                                      extras, `_marker_kernel_ext`,
+                                      `_sim_marker_kernel_ext`
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (`ops/lbs_jacobian.py`), a CUDA tensor launches the
@@ -35,7 +42,22 @@ FK_JAC = "fk_smalls<jac>"
 FK_SIM = "fk_smalls<sim>"
 ROWS_JAC = "marker_rows<jac>"
 ROWS_SIM = "marker_rows<sim>"
+FK_JAC_EXT = "fk_smalls<jac,ext>"
+FK_SIM_EXT = "fk_smalls<sim,ext>"
+ROWS_JAC_EXT = "marker_rows<jac,ext>"
+ROWS_SIM_EXT = "marker_rows<sim,ext>"
 MAX_JOINTS = 64   # one thread a joint, ancestor sets as 64-bit masks
+# widest extras block of the ported kernels (the JAX package's
+# INLINE_MAX_EXTRAS); wider ones take its tiled kernels, not ported yet
+MAX_INLINE_EXTRAS = 16
+
+
+def _names(with_jac: bool, ext: bool):
+    """(fk_smalls, marker_rows) counter names of one variant."""
+    if ext:
+        return (FK_JAC_EXT, ROWS_JAC_EXT) if with_jac else (FK_SIM_EXT,
+                                                            ROWS_SIM_EXT)
+    return (FK_JAC, ROWS_JAC) if with_jac else (FK_SIM, ROWS_SIM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +80,11 @@ class MarkerJacTables:
     cf: torch.Tensor           # (M, 3) marker coefficients
     body_dof: int
     hand_dof: int
+    # extra shape dims: E direction columns of joint_shapedirs / shapedirs
+    # (E = 0: zero-width tables)
+    djnt: torch.Tensor         # (J, E, 3) rest-joint directions
+    dtrel: torch.Tensor        # (J, E, 3) parent-relative directions
+    dv: torch.Tensor           # (M, 3, E, 3) frame-vertex directions [m, k, e, c]
 
     @property
     def num_markers(self) -> int:
@@ -72,21 +99,40 @@ class MarkerJacTables:
         return self.pd3.shape[-1]
 
     @property
+    def n_extra(self) -> int:
+        return self.djnt.shape[1]
+
+    @property
     def dof(self) -> int:
-        return 3 + self.body_dof + self.hand_dof
+        return 3 + self.body_dof + self.hand_dof + self.n_extra
 
 
 def prepare_marker_jac_tables(model: SurfaceModel,
                               idx: MarkerFrameIndices,
                               coeffs: torch.Tensor,
-                              betas: torch.Tensor) -> MarkerJacTables:
+                              betas: torch.Tensor,
+                              extra_cols=None) -> MarkerJacTables:
     """Freeze a (model, marker set, betas) problem into kernel tables, on
     the model's device. Shape sums run in float64 on the host, as in the JAX
-    package."""
+    package.
+
+    extra_cols: optional column indices into shapedirs / joint_shapedirs of
+    per-frame extra shape dims (the DMPL columns [num_betas,
+    num_betas + num_dmpls), or expression columns); the kernels then shift
+    the rest geometry per frame and emit E extra Jacobian columns."""
     parents = model.parents
     J = model.num_joints
     if J > MAX_JOINTS:
         raise ValueError(f"{J} joints: the marker kernels take <= {MAX_JOINTS}")
+    cols = np.asarray([] if extra_cols is None else extra_cols, np.int64)
+    E = len(cols)
+    if E > MAX_INLINE_EXTRAS:
+        raise NotImplementedError(
+            f"{E} extra shape dims: more than {MAX_INLINE_EXTRAS} take the "
+            "tiled extras kernels (Pallas K10-K16), not ported yet")
+    if E and int(cols.max()) >= model.num_shape_dirs:
+        raise ValueError(f"extra column {int(cols.max())} beyond shapedirs "
+                         f"width {model.num_shape_dirs}")
     dev = model.device
     nb = min(int(betas.shape[-1]), model.num_shape_dirs)
     betas64 = betas.detach().cpu().numpy().astype(np.float64)[:nb]
@@ -117,6 +163,14 @@ def prepare_marker_jac_tables(model: SurfaceModel,
     w_i = w_eff[inst]                                          # (3M, J)
     pd = (model.posedirs.cpu().numpy()[inst] if has_pb
           else np.zeros((3 * M, 3, 0), np.float32))
+    djnt = model.joint_shapedirs.cpu().numpy().astype(np.float64)[
+        ..., cols].transpose(0, 2, 1)                          # (J, E, 3)
+    dtrel = djnt.copy()
+    for j in range(J):
+        if parents[j] >= 0:
+            dtrel[j] = djnt[j] - djnt[parents[j]]
+    dv = model.shapedirs.cpu().numpy()[inst][..., cols].reshape(
+        M, 3, 3, E).transpose(0, 1, 3, 2)                      # [m, k, e, c]
     t = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(a),
                                                     dtype=dt, device=dev)
     return MarkerJacTables(
@@ -137,54 +191,79 @@ def prepare_marker_jac_tables(model: SurfaceModel,
         cf=t(coeffs.detach().cpu().numpy()),
         body_dof=info.body_pose_dof,
         hand_dof=hand_dof,
+        djnt=t(djnt),
+        dtrel=t(dtrel),
+        dv=t(dv),
     )
 
 
 # ---- fk_smalls ---------------------------------------------------------------
 
+def _check_extra(tables: MarkerJacTables, extra, F: int) -> None:
+    """Raise unless `extra` matches the tables' E (None when E = 0)."""
+    E = tables.n_extra
+    if (extra is None) != (E == 0) or (
+            extra is not None and tuple(extra.shape) != (F, E)):
+        got = None if extra is None else tuple(extra.shape)
+        raise ValueError(f"extra: the tables have E={E} extra dims, got {got}")
+
+
 def fk_smalls_plain(theta: torch.Tensor, tables: MarkerJacTables,
-                    with_jac: bool) -> JointSmalls:
+                    with_jac: bool,
+                    extra: Optional[torch.Tensor] = None) -> JointSmalls:
     """Plain PyTorch version of the `fk_smalls` kernel."""
-    kernels.note_plain(FK_JAC if with_jac else FK_SIM, theta)
-    return joint_smalls(theta, tables.jnts, tables.parents, with_jac)
+    _check_extra(tables, extra, theta.shape[0])
+    kernels.note_plain(_names(with_jac, extra is not None)[0], theta)
+    return joint_smalls(theta, tables.jnts, tables.parents, with_jac,
+                        extra, tables.djnt, tables.dtrel)
 
 
 def fk_smalls(theta: torch.Tensor, tables: MarkerJacTables,
-              with_jac: bool) -> JointSmalls:
-    """Per-frame joint quantities from fullpose axis-angles (F, J, 3)."""
+              with_jac: bool,
+              extra: Optional[torch.Tensor] = None) -> JointSmalls:
+    """Per-frame joint quantities from fullpose axis-angles (F, J, 3) and,
+    when the tables have E extra dims, their values extra (F, E)."""
     if not theta.is_cuda:
-        return fk_smalls_plain(theta, tables, with_jac)
+        return fk_smalls_plain(theta, tables, with_jac, extra)
     F = theta.shape[0]
-    J = tables.num_joints
+    J, E = tables.num_joints, tables.n_extra
     kernels.check("theta", theta, (F, J, 3))
+    _check_extra(tables, extra, F)
+    if E:
+        kernels.check("extra", extra, (F, E))
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=theta.device)
     sm = JointSmalls(grot=e(F, J, 3, 3), atr=e(F, J, 3),
                      feat=e(F, J - 1, 3, 3),
                      wrot=e(F, J, 3, 3, 3) if with_jac else None,
                      wtr=e(F, J, 3, 3) if with_jac else None,
-                     dr=e(F, J, 3, 3, 3) if with_jac else None)
+                     dr=e(F, J, 3, 3, 3) if with_jac else None,
+                     datr=e(F, E, J, 3) if with_jac and E else None)
     p = kernels.ptr
     kernels.launch(
-        "fk_smalls_launch", FK_JAC if with_jac else FK_SIM, int(with_jac),
+        "fk_smalls_launch", _names(with_jac, E > 0)[0], int(with_jac),
         p(theta), p(tables.parents_t), p(tables.depth_t), tables.max_depth,
         p(tables.jnts), p(tables.trel), F, J, p(sm.grot), p(sm.atr),
-        p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr))
+        p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), E, p(extra),
+        p(tables.djnt), p(tables.dtrel), p(tables.ancmask), p(sm.datr))
     return sm
 
 
 # ---- marker_rows -------------------------------------------------------------
 
 def marker_rows_plain(sm: JointSmalls, trans: torch.Tensor,
-                      tables: MarkerJacTables, with_jac: bool):
+                      tables: MarkerJacTables, with_jac: bool,
+                      extra: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the `marker_rows` kernel: (sim (F, M, 3),
     jm (F, M, 3, D) or None)."""
-    kernels.note_plain(ROWS_JAC if with_jac else ROWS_SIM, trans)
     F = trans.shape[0]
+    _check_extra(tables, extra, F)
+    kernels.note_plain(_names(with_jac, extra is not None)[1], trans)
     M, J = tables.num_markers, tables.num_joints
-    verts, Jfull = skin_rows(
+    verts, Jfull, Je = skin_rows(
         sm, tables.w3.reshape(3 * M, J), tables.s3.reshape(3 * M, J),
         tables.vsh3.reshape(3 * M, 3), tables.pd3.reshape(3 * M, 3, -1),
-        tables.anc, trans, with_jac)
+        tables.anc, trans, with_jac, extra,
+        tables.dv.reshape(3 * M, -1, 3))
     # the local frame in float64, as the kernel computes it
     sim, dms = reconstruct_with_grad(verts.reshape(F, M, 3, 3),
                                      tables.cf.to(verts.dtype))
@@ -197,70 +276,88 @@ def marker_rows_plain(sm: JointSmalls, trans: torch.Tensor,
                      Jfull.reshape(F, M, 3, 3, 3 * J))
     Jpose = hand_chain(U, tables.body_dof, tables.hc)
     eye = torch.eye(3, dtype=sim.dtype, device=sim.device)
-    return sim, torch.cat([eye.expand(F, M, 3, 3), Jpose], dim=-1)
+    cols = [eye.expand(F, M, 3, 3), Jpose]
+    if Je is not None:
+        cols.append(torch.einsum("fmkca,fmkae->fmce", dms,
+                                 Je.reshape(F, M, 3, 3, -1)))
+    return sim, torch.cat(cols, dim=-1)
 
 
 def marker_rows(sm: JointSmalls, trans: torch.Tensor,
-                tables: MarkerJacTables, with_jac: bool):
-    """Simulated markers (F, M, 3) and, with the Jacobian, jm (F, M, 3, D)."""
+                tables: MarkerJacTables, with_jac: bool,
+                extra: Optional[torch.Tensor] = None):
+    """Simulated markers (F, M, 3) and, with the Jacobian, jm (F, M, 3, D);
+    extra (F, E) when the tables have E extra dims."""
     if not trans.is_cuda:
-        return marker_rows_plain(sm, trans, tables, with_jac)
+        return marker_rows_plain(sm, trans, tables, with_jac, extra)
     F = trans.shape[0]
-    M, J, D = tables.num_markers, tables.num_joints, tables.dof
+    M, J, D, E = (tables.num_markers, tables.num_joints, tables.dof,
+                  tables.n_extra)
     kernels.check("trans", trans, (F, 3))
     kernels.check("grot", sm.grot, (F, J, 3, 3))
     kernels.check("atr", sm.atr, (F, J, 3))
     kernels.check("feat", sm.feat, (F, J - 1, 3, 3))
+    _check_extra(tables, extra, F)
+    if E:
+        kernels.check("extra", extra, (F, E))
     if with_jac:
         kernels.check("wrot", sm.wrot, (F, J, 3, 3, 3))
         kernels.check("wtr", sm.wtr, (F, J, 3, 3))
         kernels.check("dr", sm.dr, (F, J, 3, 3, 3))
+        if E:
+            kernels.check("datr", sm.datr, (F, E, J, 3))
     sim = torch.empty((F, M, 3), dtype=torch.float32, device=trans.device)
     jm = (torch.empty((F, M, 3, D), dtype=torch.float32, device=trans.device)
           if with_jac else None)
     p = kernels.ptr
     kernels.launch(
-        "marker_rows_launch", ROWS_JAC if with_jac else ROWS_SIM,
+        "marker_rows_launch", _names(with_jac, E > 0)[1],
         int(with_jac), F, M, J, tables.feat_n, tables.body_dof,
         tables.hand_dof, D, p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot),
         p(sm.wtr), p(sm.dr), p(trans), p(tables.w3), p(tables.s3),
         p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
-        p(tables.hc), p(sim), p(jm))
+        p(tables.hc), p(sim), p(jm), E, p(extra), p(sm.datr), p(tables.dv))
     return sim, jm
 
 
 # ---- public entry points -----------------------------------------------------
 
-def _theta_trans(model: SurfaceModel, tables: MarkerJacTables,
-                 x: torch.Tensor):
-    """Fullpose axis-angles (F, J, 3) and translations (F, 3) of packed
-    (trans, pose) rows; the hand-PCA product stays a plain matmul, as it
-    stays outside the Pallas kernels."""
-    P = model.pose_dof
-    if x.shape[-1] != 3 + P:
-        raise NotImplementedError(
-            f"x has {x.shape[-1]} columns, expected 3 + {P}: extra shape "
-            "dims (DMPL, expressions) are not ported yet")
-    x = x.to(torch.float32)
-    trans = x[:, :3].contiguous()
-    pose = x[:, 3:]
+def split_x(x: torch.Tensor, pose_dof: int):
+    """(trans, pose, extra) column blocks of packed (N, 3 + P + E) rows: the
+    one place that knows the layout of x."""
+    return x[:, :3], x[:, 3:3 + pose_dof], x[:, 3 + pose_dof:]
+
+
+def kernel_inputs(model: SurfaceModel, tables: MarkerJacTables,
+                  x: torch.Tensor):
+    """The kernels' inputs of packed x: fullpose axis-angles (F, J, 3),
+    translations (F, 3) and extras (F, E) or None; the hand-PCA product
+    stays a plain matmul, as it stays outside the Pallas kernels."""
+    P, E = model.pose_dof, tables.n_extra
+    if x.shape[-1] != 3 + P + E:
+        raise ValueError(f"x has {x.shape[-1]} columns, expected 3 + {P} "
+                         f"+ {E} extra dims of the tables")
+    trans, pose, extra = split_x(x.to(torch.float32), P)
+    trans = trans.contiguous()
+    extra = extra.contiguous() if E else None
     if tables.hc is not None:
         bd = tables.body_dof
         hands = tables.hands_mean + pose[:, bd:] @ tables.hc
         pose = torch.cat([pose[:, :bd], hands], dim=1)
-    return pose.reshape(x.shape[0], -1, 3).contiguous(), trans
+    return pose.reshape(x.shape[0], -1, 3).contiguous(), trans, extra
 
 
 def marker_sim_and_jacobian(model: SurfaceModel, tables: MarkerJacTables,
                             x: torch.Tensor):
-    """x (F, 3+P) -> (sim (F, M, 3), jm (F, M, 3, 3+P))."""
-    theta, trans = _theta_trans(model, tables, x)
-    return marker_rows(fk_smalls(theta, tables, True), trans, tables, True)
+    """x (F, 3+P+E) -> (sim (F, M, 3), jm (F, M, 3, 3+P+E))."""
+    theta, trans, extra = kernel_inputs(model, tables, x)
+    return marker_rows(fk_smalls(theta, tables, True, extra), trans, tables,
+                       True, extra)
 
 
 def marker_sim(model: SurfaceModel, tables: MarkerJacTables,
                x: torch.Tensor) -> torch.Tensor:
-    """x (F, 3+P) -> simulated markers (F, M, 3), no derivative chain."""
-    theta, trans = _theta_trans(model, tables, x)
-    return marker_rows(fk_smalls(theta, tables, False), trans, tables,
-                       False)[0]
+    """x (F, 3+P+E) -> simulated markers (F, M, 3), no derivative chain."""
+    theta, trans, extra = kernel_inputs(model, tables, x)
+    return marker_rows(fk_smalls(theta, tables, False, extra), trans, tables,
+                       False, extra)[0]

@@ -1,8 +1,10 @@
 """Stage II — per-frame pose (+trans) estimation, batched over frames.
 
 Port of `moshpp_tpu/pipeline/stageii.py` for the main path: the unchunked
-`mosh_stageii_solve` schedule with a GMM (or no) body prior and no extra
-shape dims. The frame axis is data-parallel exactly as in the JAX package:
+`mosh_stageii_solve` schedule with a GMM (or no) body prior and, with
+`optimize_dynamics`, up to 16 DMPL soft-tissue coefficients a frame (extra
+shape dims riding shapedirs columns [num_betas, num_betas + num_dmpls)).
+The frame axis is data-parallel exactly as in the JAX package:
 
   pass A: every S-th frame (anchor) gets the reference's first-frame
     treatment (rigid init, annealed prior solves [10w, 5w, w], a full-pose
@@ -21,8 +23,9 @@ regularizers as analytic blocks. The direction is the fused dogleg kernel
 the polish runs deep PCG through the kernel.
 
 Not ported yet (raise NotImplementedError): chunked solves of long
-sequences, `return_report`, `on_phase`, `mesh`, extra shape dims (DMPL,
-expressions), callable priors and non-contiguous prior slices.
+sequences, `return_report`, `on_phase`, `mesh`, expressions
+(`optimize_face`), more than 16 DMPL dims, callable priors and
+non-contiguous prior slices.
 """
 
 from __future__ import annotations
@@ -37,9 +40,9 @@ import torch
 from moshpp_torch.models.body_model import (MODEL_TYPE_INFO, SurfaceModel,
                                             fullpose_from_pose, lbs_forward,
                                             pose_part_ids)
-from moshpp_torch.ops.marker_jac import (MarkerJacTables, marker_sim,
-                                         marker_sim_and_jacobian,
-                                         prepare_marker_jac_tables)
+from moshpp_torch.ops.marker_jac import (MAX_INLINE_EXTRAS, MarkerJacTables,
+                                         marker_sim, marker_sim_and_jacobian,
+                                         prepare_marker_jac_tables, split_x)
 from moshpp_torch.ops.marker_transform import (MarkerFrameIndices,
                                                marker_coeffs,
                                                reconstruct_markers,
@@ -54,7 +57,8 @@ NUM_TRAIN_MARKERS = 46.0  # weight-normalization constant (chmosh.py:460)
 
 DEFAULT_STAGEII_WEIGHTS = {
     # smplh/smplx table, support_data/conf/moshpp_conf.yaml:118-125
-    "data": 400.0, "velo": 2.5, "poseB": 1.6, "poseH": 1.0, "annealing": 2.5,
+    "data": 400.0, "velo": 2.5, "dmpl": 1.0, "poseB": 1.6, "poseH": 1.0,
+    "annealing": 2.5,
     # extra velocity weight on the hand-PCA dofs (1.0 = off)
     "velo_hands": 1.0,
 }
@@ -65,8 +69,9 @@ class StageIIOptions:
     optimize_fingers: bool = False
     optimize_face: bool = False       # not ported: raises
     optimize_toes: bool = False
-    optimize_dynamics: bool = False   # not ported: raises
+    optimize_dynamics: bool = False   # DMPL extras, num_dmpls <= 16
     num_betas: int = 16
+    num_dmpls: int = 8
     maxiter: int = 100
     smoothing_sweeps: int = 2
     e_3_polish: float = 1e-4
@@ -118,7 +123,7 @@ class StageIIResult(NamedTuple):
     trans: torch.Tensor         # (F, 3)
     pose: torch.Tensor          # (F, P) optimization pose vector
     fullpose: torch.Tensor      # (F, 3*J) expanded axis-angles
-    extra: torch.Tensor         # (F, 0): no extra dims in this port
+    extra: torch.Tensor         # (F, E) DMPL coefficients (E may be 0)
     markers_sim: torch.Tensor   # (F, M, 3)
     data_err: torch.Tensor      # (F,) mean distance over observed markers (m)
     iterations: torch.Tensor    # (F,) iterations of the final (polish) solve
@@ -126,9 +131,28 @@ class StageIIResult(NamedTuple):
 
 
 def _check_supported(opts: StageIIOptions) -> None:
-    if opts.optimize_face or opts.optimize_dynamics:
+    if opts.optimize_face:
         raise NotImplementedError(
-            "extra shape dims (expressions, DMPL) are not ported yet")
+            "expressions (optimize_face) are not ported yet")
+    if opts.optimize_dynamics and opts.num_dmpls > MAX_INLINE_EXTRAS:
+        raise NotImplementedError(
+            f"num_dmpls={opts.num_dmpls} > {MAX_INLINE_EXTRAS}: wider extras "
+            "take the tiled Pallas kernels K10-K16, not ported yet")
+
+
+def _num_extra(opts: StageIIOptions) -> int:
+    return opts.num_dmpls if opts.optimize_dynamics else 0
+
+
+def _betas_for_lbs(prob: StageIIProblem, opts: StageIIOptions,
+                   extra: torch.Tensor) -> torch.Tensor:
+    """Shape coefficients seen by LBS: the subject's betas (B',) or, with
+    DMPL dims, (N, B' + E) per frame (the DMPL components occupy shapedirs
+    columns [num_betas, num_betas + num_dmpls))."""
+    base = prob.betas[:opts.num_betas]
+    if not _num_extra(opts):
+        return base
+    return torch.cat([base.expand(extra.shape[0], -1), extra], dim=1)
 
 
 def _problem(sub_model, local, coeffs, betas, opts) -> StageIIProblem:
@@ -137,8 +161,10 @@ def _problem(sub_model, local, coeffs, betas, opts) -> StageIIProblem:
     indices = MarkerFrameIndices(local[:, 0], local[:, 1], local[:, 2])
     coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=dev)
     betas = torch.as_tensor(betas, dtype=torch.float32, device=dev)
-    tables = prepare_marker_jac_tables(sub_model, indices, coeffs,
-                                       betas[:opts.num_betas])
+    nb = opts.num_betas
+    tables = prepare_marker_jac_tables(
+        sub_model, indices, coeffs, betas[:nb],
+        extra_cols=range(nb, nb + _num_extra(opts)))
     return StageIIProblem(sub_model, indices.c0, indices.c1, indices.c2,
                           coeffs, betas, tables)
 
@@ -188,12 +214,12 @@ def problem_from_arrays(sub_model: SurfaceModel, frame_idx: np.ndarray,
 
 def simulate_markers(prob: StageIIProblem, opts: StageIIOptions,
                      x: torch.Tensor) -> torch.Tensor:
-    """Markers (N, M, 3) from packed (N, 3 + P) parameters, through the plain
-    forward model (not the kernels), as the JAX package's outputs are."""
-    model = prob.sub_model
-    P = model.pose_dof
-    verts = lbs_forward(model, x[:, 3:3 + P], prob.betas[:opts.num_betas],
-                        x[:, :3])
+    """Markers (N, M, 3) from packed (N, 3 + P + E) parameters, through the
+    plain forward model (not the kernels), as the JAX package's outputs
+    are."""
+    trans, pose, extra = split_x(x, prob.sub_model.pose_dof)
+    verts = lbs_forward(prob.sub_model, pose,
+                        _betas_for_lbs(prob, opts, extra), trans)
     return reconstruct_markers(verts, prob.indices, prob.coeffs)
 
 
@@ -238,7 +264,8 @@ def make_stageii_system(prob: StageIIProblem,
     """Batched Gauss-Newton system (x (N, D), aux) -> (f, g, B (N, D, D)).
 
     aux values carry a leading N: markers (N, M, 3), mask (N, M), wt_data,
-    anneal, wt_pose_scale (N,), velo_anchor (N, P), velo_on (N,).
+    anneal, wt_pose_scale (N,), velo_anchor (N, P), velo_on (N,) and, with
+    E DMPL dims, extra_anchor (N, E), extra_on (N,).
     """
     _check_supported(opts)
     if prior is not None and not isinstance(prior, MaxMixturePrior):
@@ -247,7 +274,8 @@ def make_stageii_system(prob: StageIIProblem,
     model = prob.sub_model
     tables = prob.tables
     P = model.pose_dof
-    D = 3 + P
+    E = _num_extra(opts)
+    D = 3 + P + E
     wt = opts.wt
     velo_w = _velo_weight_vec(prob, opts, spec, prob.device)
     use_prior = prior is not None and spec.body_rng is not None
@@ -288,6 +316,13 @@ def make_stageii_system(prob: StageIIProblem,
             s, e = spec.finger_rng
             wf = (wt("poseH") * aux["anneal"])[:, None]
             f = diag(f, s, e, x[:, s:e], wf)
+        if E:
+            # DMPL magnitude and its extrapolation anchor (JAX
+            # `_quad_smalls`)
+            extra = x[:, 3 + P:]
+            f = diag(f, 3 + P, D, extra, wt("dmpl"))
+            f = diag(f, 3 + P, D, extra - aux["extra_anchor"],
+                     6.0 * aux["extra_on"][:, None])
         pose = x[:, 3:3 + P]
         f = diag(f, 3, 3 + P, pose - aux["velo_anchor"],
                  velo_w[None, :] * aux["velo_on"][:, None])
@@ -328,7 +363,7 @@ def _param_masks(model: SurfaceModel, opts: StageIIOptions, model_type: str,
     info = MODEL_TYPE_INFO[model_type]
     parts = pose_part_ids(model_type, optimize_toes=opts.optimize_toes)
     P = model.pose_dof
-    step1 = np.zeros(3 + P, np.float32)
+    step1 = np.zeros(3 + P + _num_extra(opts), np.float32)
     step1[:3] = 1.0
     for i in parts["root"] + parts["body"]:
         step1[3 + i] = 1.0
@@ -337,6 +372,8 @@ def _param_masks(model: SurfaceModel, opts: StageIIOptions, model_type: str,
     step2 = step1.copy()
     if opts.optimize_fingers and info.has_hands:
         step2[3 + info.body_pose_dof: 3 + P] = 1.0
+    if opts.optimize_dynamics:
+        step2[3 + P:] = 1.0
     t = lambda a: torch.as_tensor(a, device=device)
     return t(step1), t(step2)
 
@@ -345,18 +382,18 @@ def rigid_init(prob: StageIIProblem, opts: StageIIOptions,
                markers_obs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-frame rigid initialization about the root joint: packed x0 (F, D)."""
     model = prob.sub_model
-    P = model.pose_dof
+    D = 3 + model.pose_dof + _num_extra(opts)
     F = markers_obs.shape[0]
     dev = markers_obs.device
     sim_rest = simulate_markers(
-        prob, opts, torch.zeros((1, 3 + P), device=dev))[0]     # (M, 3)
+        prob, opts, torch.zeros((1, D), device=dev))[0]         # (M, 3)
     nb = opts.num_betas
     betas = prob.betas[:nb]
     j0 = model.joint_template[0] + model.joint_shapedirs[0, :, :betas.shape[0]] @ betas
     rot, t = kabsch(sim_rest.expand(F, -1, -1), markers_obs, mask)
     rv = rodrigues_inverse(rot)
     trans = t + rot @ j0 - j0
-    x = torch.zeros((F, 3 + P), dtype=torch.float32, device=dev)
+    x = torch.zeros((F, D), dtype=torch.float32, device=dev)
     x[:, :3] = trans
     x[:, 3:6] = rv
     return x
@@ -365,7 +402,8 @@ def rigid_init(prob: StageIIProblem, opts: StageIIOptions,
 def _interp_x(xa: torch.Tensor, seg_lo: torch.Tensor, seg_hi: torch.Tensor,
               alpha: torch.Tensor, model: SurfaceModel) -> torch.Tensor:
     """Rotation-aware interpolation between anchor solves: joint axis-angles
-    by per-joint quaternion slerp, the rest linearly."""
+    by per-joint quaternion slerp, the rest (hand-PCA coefficients,
+    translation, extra dims) linearly."""
     lo = xa[seg_lo]
     hi = xa[seg_hi]
     a = alpha[:, None]
@@ -379,14 +417,19 @@ def _interp_x(xa: torch.Tensor, seg_lo: torch.Tensor, seg_hi: torch.Tensor,
     return lin
 
 
-def _velo_aux(x: torch.Tensor, P: int):
-    """Velocity extrapolation anchors 2 pose_{t-1} - pose_{t-2} and their
-    on-flags (frames >= 2)."""
+def _velo_aux(x: torch.Tensor, P: int) -> dict:
+    """Velocity extrapolation anchors 2 x_{t-1} - x_{t-2} of the pose and
+    of the extra (DMPL) dims, and their on-flags (frames >= 2)."""
     F = x.shape[0]
-    pose = x[:, 3:3 + P]
-    anchor = 2.0 * torch.roll(pose, 1, 0) - torch.roll(pose, 2, 0)
+
+    def anchor(v):
+        return (2.0 * torch.roll(v, 1, 0) - torch.roll(v, 2, 0)) * on[:, None]
+
     on = (torch.arange(F, device=x.device) >= 2).to(torch.float32)
-    return anchor * on[:, None], on
+    out = {"velo_anchor": anchor(x[:, 3:3 + P]), "velo_on": on}
+    if x.shape[1] > 3 + P:
+        out.update(extra_anchor=anchor(x[:, 3 + P:]), extra_on=on)
+    return out
 
 
 @contextlib.contextmanager
@@ -440,6 +483,7 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
     maskf = torch.as_tensor(mask, device=device).to(torch.float32)
     F, M = maskf.shape
     P = model.pose_dof
+    E = _num_extra(opts)
     wt = opts.wt
     system = make_stageii_system(prob, opts, prior, model_type)
 
@@ -460,19 +504,22 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
         n = F if idx is None else len(idx)
         pick = (lambda a: a) if idx is None else (lambda a: a[idx])
         z = torch.zeros((n,), dtype=torch.float32, device=device)
-        return {"markers": pick(obs), "mask": pick(maskf),
-                "wt_data": pick(wt_data), "anneal": pick(anneal),
-                "wt_pose_scale": torch.full((n,), scale, device=device),
-                "velo_anchor": torch.zeros((n, P), device=device),
-                "velo_on": z}
+        aux = {"markers": pick(obs), "mask": pick(maskf),
+               "wt_data": pick(wt_data), "anneal": pick(anneal),
+               "wt_pose_scale": torch.full((n,), scale, device=device),
+               "velo_anchor": torch.zeros((n, P), device=device),
+               "velo_on": z}
+        if E:
+            aux.update(extra_anchor=torch.zeros((n, E), device=device),
+                       extra_on=z)
+        return aux
 
     syncs = 0
 
     def run(x, aux, pmask, e3, dl, use_velo=False):
         nonlocal syncs
         if use_velo:
-            va, von = _velo_aux(x, P)
-            aux = dict(aux, velo_anchor=va, velo_on=von)
+            aux = dict(aux, **_velo_aux(x, P))
         r = batched_system_solve(system, x, aux, dl, param_mask=pmask,
                                  e_3=e3, compact_buckets=opts.compact_buckets)
         syncs += r.host_syncs
@@ -525,13 +572,12 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
 
 def _finalize(prob, opts, x, iters, markers_obs, maskf, syncs) -> StageIIResult:
     model = prob.sub_model
-    P = model.pose_dof
-    pose = x[:, 3:3 + P]
+    trans, pose, extra = split_x(x, model.pose_dof)
     sim = simulate_markers(prob, opts, x)
     err = torch.sqrt(torch.sum((sim - markers_obs) ** 2, -1)) * maskf
     data_err = torch.sum(err, -1) / torch.clamp(torch.sum(maskf, 1), min=1.0)
-    return StageIIResult(trans=x[:, :3], pose=pose,
+    return StageIIResult(trans=trans, pose=pose,
                          fullpose=fullpose_from_pose(model, pose),
-                         extra=x[:, 3 + P:], markers_sim=sim,
+                         extra=extra, markers_sim=sim,
                          data_err=data_err, iterations=iters,
                          host_syncs=syncs)

@@ -37,10 +37,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _tables(family, dof_per_hand, M, device, seed=0):
+def _tables(family, dof_per_hand, M, device, seed=0, E=0):
+    """Tables of a 300-vertex model with 10 betas and, with E, E extra
+    (DMPL) columns right after them."""
     rng = np.random.default_rng(seed)
     model = make_synthetic_model(family, num_verts=300, seed=4,
-                                 dof_per_hand=dof_per_hand, device=device)
+                                 dof_per_hand=dof_per_hand, device=device,
+                                 num_shape_dirs=10 + E if E else None)
     betas = torch.as_tensor((rng.normal(size=10) * 0.3).astype(np.float32),
                             device=device)
     can_v = model.v_template + torch.einsum("vcb,b->vc",
@@ -49,7 +52,8 @@ def _tables(family, dof_per_hand, M, device, seed=0):
     lat = can_v[vids] + 0.01
     idx = select_frame_indices(can_v, lat)
     coeffs = marker_coeffs(can_v, lat, idx)
-    return model, mj.prepare_marker_jac_tables(model, idx, coeffs, betas), rng
+    return model, mj.prepare_marker_jac_tables(
+        model, idx, coeffs, betas, extra_cols=range(10, 10 + E)), rng
 
 
 CASES = [("smplh", 6, 7), ("smplh", 24, 46), ("smpl", 0, 5), ("mano", 6, 7)]
@@ -62,7 +66,7 @@ def test_fk_smalls_kernel_matches_plain(dev, family, dph, M, with_jac):
     x = torch.as_tensor((rng.normal(size=(37, 3 + model.pose_dof)) * 0.5)
                         .astype(np.float32), device=dev)
     x[0] = 0.0
-    theta, _ = mj._theta_trans(model, tables, x)
+    theta, _, _ = mj.kernel_inputs(model, tables, x)
     k = mj.fk_smalls(theta, tables, with_jac)
     p = mj.fk_smalls_plain(theta, tables, with_jac)
     torch.cuda.synchronize()
@@ -79,7 +83,7 @@ def test_marker_rows_kernel_matches_plain(dev, family, dph, M, with_jac):
     model, tables, rng = _tables(family, dph or 6, M, dev)
     x = torch.as_tensor((rng.normal(size=(37, 3 + model.pose_dof)) * 0.5)
                         .astype(np.float32), device=dev)
-    theta, trans = mj._theta_trans(model, tables, x)
+    theta, trans, _ = mj.kernel_inputs(model, tables, x)
     sm = mj.fk_smalls_plain(theta, tables, with_jac)
     sim_k, jm_k = mj.marker_rows(sm, trans, tables, with_jac)
     sim_p, jm_p = mj.marker_rows_plain(sm, trans, tables, with_jac)
@@ -92,15 +96,57 @@ def test_marker_rows_kernel_matches_plain(dev, family, dph, M, with_jac):
         assert jm_k is None
 
 
+@pytest.mark.parametrize("with_jac", [True, False])
+def test_fk_smalls_ext_kernel_matches_plain(dev, with_jac):
+    """fk_smalls<., ext> (8 DMPL dims, full-width SMPL+H hands) at N=128,
+    datr included."""
+    model, tables, rng = _tables("smplh", 24, 46, dev, E=8)
+    x = torch.as_tensor((rng.normal(size=(128, tables.dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    x[0] = 0.0
+    theta, _, extra = mj.kernel_inputs(model, tables, x)
+    k = mj.fk_smalls(theta, tables, with_jac, extra)
+    p = mj.fk_smalls_plain(theta, tables, with_jac, extra)
+    torch.cuda.synchronize()
+    assert (k.datr is not None) == with_jac
+    for f, a, b in zip(k._fields, k, p):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5, msg=f)
+
+
+@pytest.mark.parametrize("with_jac", [True, False])
+def test_marker_rows_ext_kernel_matches_plain(dev, with_jac):
+    """marker_rows<., ext> at N=128, 46 markers, D = 3 + 114 + 8."""
+    model, tables, rng = _tables("smplh", 24, 46, dev, E=8)
+    x = torch.as_tensor((rng.normal(size=(128, tables.dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    theta, trans, extra = mj.kernel_inputs(model, tables, x)
+    sm = mj.fk_smalls_plain(theta, tables, with_jac, extra)
+    sim_k, jm_k = mj.marker_rows(sm, trans, tables, with_jac, extra)
+    sim_p, jm_p = mj.marker_rows_plain(sm, trans, tables, with_jac, extra)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sim_k, sim_p, rtol=0, atol=2e-5)
+    if with_jac:
+        assert jm_k.shape == (128, 46, 3, 125)
+        scale = max(float(jm_p.abs().max()), 1.0)
+        torch.testing.assert_close(jm_k, jm_p, rtol=0, atol=3e-4 * scale)
+    else:
+        assert jm_k is None
+
+
 @pytest.mark.parametrize("D,cond", [(17, 5.0), (17, 1e2), (117, 5.0),
-                                    (117, 1e2), (117, 1e3)])
+                                    (117, 1e2), (117, 1e3), (125, 1e2)])
 @pytest.mark.parametrize("iters", [24, 128])
 def test_direction_kernel_matches_plain(dev, D, cond, iters):
     """Against the plain version in float64, within 4x the float32 plain
     version's own distance from it; at cond ~5 also elementwise against the
     float32 plain version. At D=117, cond >= 1e2, 24 iterations have not
     converged, so p differs between 24 and 128 iterations; at D=17, 128
-    iterations run far past convergence, through the breakdown guards."""
+    iterations run far past convergence, through the breakdown guards. At
+    D=125 (the DMPL path) B takes 62.5 KB of shared memory, past the 48 KB
+    default."""
     args = pcg.direction_test_system(128, D, cond, seed=D, device=dev)
     out_k = pcg.dogleg_direction_batched(*args, iters, 1e-8)
     out_p = pcg.dogleg_direction_plain(*args, iters, 1e-8)
@@ -114,7 +160,7 @@ def test_direction_kernel_matches_plain(dev, D, cond, iters):
         torch.testing.assert_close(out_k[0], out_p[0], rtol=2e-4, atol=1e-5)
         torch.testing.assert_close(out_k[1], out_p[1], rtol=2e-4, atol=1e-5)
         torch.testing.assert_close(out_k[2], out_p[2], rtol=2e-3, atol=1e-6)
-    if D == 117 and cond >= 1e2:
+    if D >= 117 and cond >= 1e2:
         other = pcg.dogleg_direction_plain(*(t.double() for t in args),
                                            24 if iters == 128 else 128, 1e-8)
         e_p = float((out_p[0].double() - out_64[0]).abs().max())
@@ -129,7 +175,11 @@ def test_wrappers_count_and_check(dev):
     assert kernels.COUNTS.launches[mj.FK_JAC] == 1
     assert kernels.COUNTS.launches[mj.ROWS_JAC] == 1
     assert sum(kernels.COUNTS.plain_cuda.values()) == 0
-    theta, _ = mj._theta_trans(model, tables, x)
+    model_e, tables_e, _ = _tables("smpl", 6, 5, dev, E=4)
+    mj.marker_sim(model_e, tables_e, torch.zeros((3, tables_e.dof), device=dev))
+    assert kernels.COUNTS.launches[mj.FK_SIM_EXT] == 1
+    assert kernels.COUNTS.launches[mj.ROWS_SIM_EXT] == 1
+    theta, _, _ = mj.kernel_inputs(model, tables, x)
     with pytest.raises(ValueError):
         mj.fk_smalls(theta.double(), tables, True)
     with pytest.raises(ValueError):

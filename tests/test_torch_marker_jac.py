@@ -110,6 +110,12 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_extra_dims_raise():
+    """x wider than the tables' extra dims is refused; more than 16 extra
+    dims take the tiled kernels, which are not ported."""
     _, _, tm, tt, _ = _problem("smpl", 5)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         marker_sim(tm, tt, torch.zeros((2, 3 + tm.pose_dof + 4)))
+    with pytest.raises(NotImplementedError):
+        prepare_marker_jac_tables(tm, MarkerFrameIndices(*tt.cf.new_zeros(
+            (3, 5), dtype=torch.long)), tt.cf, torch.zeros(10),
+            extra_cols=range(17))

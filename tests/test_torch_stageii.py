@@ -129,11 +129,14 @@ def test_unported_options_raise(smplh):
         stageii.mosh_stageii_solve(prob, opts, fp["obs"], fp["mask"],
                                    prior=prior, return_report=True,
                                    device="cpu")
-    with pytest.raises(NotImplementedError):
-        stageii.problem_from_arrays(
-            prob.sub_model, np.zeros((2, 3), np.int64), np.zeros((2, 3)),
-            np.zeros(16), stageii.StageIIOptions(optimize_dynamics=True),
-            device="cpu")
+    # expressions, and DMPL blocks wider than the inline kernels take
+    for unported in (dict(optimize_face=True),
+                     dict(optimize_dynamics=True, num_dmpls=17)):
+        with pytest.raises(NotImplementedError):
+            stageii.problem_from_arrays(
+                prob.sub_model, np.zeros((2, 3), np.int64), np.zeros((2, 3)),
+                np.zeros(16), stageii.StageIIOptions(**unported),
+                device="cpu")
 
 
 _IMPORT_ALL = """

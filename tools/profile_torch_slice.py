@@ -2,17 +2,19 @@
 """Profile the PyTorch port's stage-ii slice on a CUDA card, or time it
 against another checkout of the port.
 
-    python tools/profile_torch_slice.py [--frames 4096]
+    python tools/profile_torch_slice.py [--frames 4096] [--problem dmpl]
     python tools/profile_torch_slice.py --ab OTHER_CHECKOUT [--pairs 10]
 
 Both use `chip_smoke.bench_problem` (the bench.py protocol: full-width
-SMPL+H, 46 markers, maxiter 100, two smoothing sweeps, fingers free).
+SMPL+H, 46 markers, maxiter 100, two smoothing sweeps, fingers free), or
+with `--problem dmpl` `chip_smoke.dmpl_problem` (the same with 8 DMPL
+soft-tissue coefficients a frame).
 
 Profile: two warm-up solves, one untraced timed solve, then one solve under
 torch.profiler. Prints the untraced and traced wall, the device time summed
 over kernels, the idle share of the untraced wall, the peak device memory
 and the card, and writes the per-kernel table (self device time, calls) to
-chiprun_out/profile_slice.txt.
+chiprun_out/profile_slice.txt (profile_dmpl.txt for the DMPL problem).
 
 A/B: one worker process per checkout (this one is A, OTHER_CHECKOUT is B),
 each with its own kernels and problem; after one warm-up solve each, solves
@@ -32,8 +34,8 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _setup(repo, frames):
-    """Import the port from `repo` and build the bench problem on the card."""
+def _setup(repo, frames, problem="bench"):
+    """Import the port from `repo` and build the problem on the card."""
     sys.path.insert(0, repo)
     import importlib.util
     import torch
@@ -43,7 +45,7 @@ def _setup(repo, frames):
     spec.loader.exec_module(cs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    bp = cs.bench_problem(frames, "cuda")
+    bp = getattr(cs, f"{problem}_problem")(frames, "cuda")
     from moshpp_torch.pipeline import stageii
 
     def solve():
@@ -61,10 +63,10 @@ def _timed(solve):
     return time.perf_counter() - t0, res
 
 
-def profile(frames):
+def profile(frames, problem):
     import torch
     from torch.profiler import ProfilerActivity
-    cs, solve = _setup(REPO, frames)
+    cs, solve = _setup(REPO, frames, problem)
     card = cs.card_line()
     solve()
     solve()
@@ -82,13 +84,14 @@ def profile(frames):
     head = (f"wall (untraced) {wall * 1e3:.1f} ms, wall (traced) "
             f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms (idle share "
             f"of the untraced wall {max(0.0, 1 - busy / (wall * 1e3)):.3f}), "
-            f"peak device memory {peak:.2f} GiB, F={frames}")
+            f"peak device memory {peak:.2f} GiB, F={frames}, {problem} problem")
     lines = [head, card] + [
         f"{e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}  {e.key[:120]}"
         for e in rows]
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_slice.txt"), "w") as f:
+    name = "profile_slice.txt" if problem == "bench" else "profile_dmpl.txt"
+    with open(os.path.join(out, name), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines[:30]))
 
@@ -147,6 +150,7 @@ def main():
     ap.add_argument("--frames", type=int, default=4096)
     ap.add_argument("--ab", metavar="OTHER_CHECKOUT")
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--problem", choices=("bench", "dmpl"), default="bench")
     ap.add_argument("--worker", metavar="CHECKOUT", help=argparse.SUPPRESS)
     a = ap.parse_args()
     import torch
@@ -157,7 +161,7 @@ def main():
     elif a.ab:
         ab(a.ab, a.frames, a.pairs)
     else:
-        profile(a.frames)
+        profile(a.frames, a.problem)
 
 
 if __name__ == "__main__":
