@@ -1,11 +1,13 @@
-// fk_smalls<WITH_JAC, EXT>: per-frame, per-joint quantities of the stage-ii
-// marker model.
+// fk_smalls<WITH_JAC, EXT, TILED>: per-frame, per-joint quantities of the
+// stage-ii marker model.
 //
 // Replaces the Pallas TPU kernels of moshpp_tpu/ops/pallas_marker_jac.py
 // (bodies `_smalls_impl` and `_sim_smalls_impl`):
-//   <true, false>  `_smalls_kernel`       <false, false>  `_sim_smalls_kernel`
-//   <true, true>   `_smalls_kernel_ext`   <false, true>   `_sim_smalls_kernel_ext`
-// Plain version: moshpp_torch/ops/lbs_jacobian.joint_smalls.
+//   <true, false, false>  `_smalls_kernel`        <false, ...>  `_sim_smalls_kernel`
+//   <true, true, false>   `_smalls_kernel_ext`    <false, ...>  `_sim_smalls_kernel_ext`
+//   <true, false, true>   `_smalls_kernel_tiled`  <false, ...>  `_sim_smalls_kernel_tiled`
+// Plain versions: moshpp_torch/ops/lbs_jacobian.joint_smalls (through
+// ops/marker_jac.fk_smalls_plain and fk_smalls_tiled_plain).
 //
 // Per frame: quaternion Rodrigues R and its hand derivative dR for every
 // joint, forward kinematics over the tree, the skinning translation
@@ -22,14 +24,20 @@
 // Q_k dtrel_e[k]; the thread walks its ancestor bitmask and reads each
 // Q_k = G_rot[parent(k)] from the shared transforms the tree walk left
 // behind (the TPU kernel does this chain sum as one (J, J) mask product).
+//
+// With TILED (the tiled extras route, any E) the wrapper has already summed
+// the shifts: jshift[f] = [sum_e x_e dtrel_e; sum_e x_e djnt_e] (2, J, 3),
+// two matmuls, so this program has no E loop and is the same at every E.
+// With the Jacobian it emits Q (F, J, 3, 3) for extras_tangent.cu, which
+// computes datr, in place of datr.
 // The E = 0 instantiations carry none of this code.
 //
 // What bounds it: writes. A frame writes 75 floats per joint with the
-// Jacobian (15.6 KB at J=52, 64 MB at F=4096), 24 more with E=8; the
-// arithmetic is a few thousand flops per joint. Design: one thread per
-// (frame, joint), 4 frames of 64 threads per block. The tree walk reads each
-// parent's transform from shared memory, one depth level per barrier,
-// instead of the TPU kernel's one-hot (J, J) products. Outputs are
+// Jacobian (15.6 KB at J=52, 64 MB at F=4096), 24 more with E=8 or 9 more
+// (Q) when TILED; the arithmetic is a few thousand flops per joint. Design:
+// one thread per (frame, joint), 4 frames of 64 threads per block. The tree
+// walk reads each parent's transform from shared memory, one depth level per
+// barrier, instead of the TPU kernel's one-hot (J, J) products. Outputs are
 // frame-major, so the marker kernel reads one frame's quantities as
 // contiguous rows.
 
@@ -43,7 +51,7 @@ constexpr int kJT = 64;   // threads per frame: joints, J <= 64
 constexpr int kFPB = 4;   // frames per block
 constexpr int kMaxExtra = 16;
 
-template <bool WITH_JAC, bool EXT>
+template <bool WITH_JAC, bool EXT, bool TILED>
 __global__ void __launch_bounds__(kJT * kFPB)
 fk_smalls_kernel(const float* __restrict__ theta,
                  const int* __restrict__ parents,
@@ -57,7 +65,9 @@ fk_smalls_kernel(const float* __restrict__ theta,
                  const float* __restrict__ djnt,
                  const float* __restrict__ dtrel,
                  const unsigned long long* __restrict__ ancmask,
-                 float* __restrict__ datr) {
+                 float* __restrict__ datr,
+                 const float* __restrict__ jshift, float* __restrict__ qout) {
+  static_assert(!(EXT && TILED), "one extras route at a time");
   __shared__ float G[kFPB][kJT][12];   // global rotation (9) + translation (3)
   const int lf = threadIdx.y;
   const int j = threadIdx.x;
@@ -89,6 +99,15 @@ fk_smalls_kernel(const float* __restrict__ theta,
           tr[c] = fmaf(xe, dt[c], tr[c]);
           jn[c] = fmaf(xe, dj[c], jn[c]);
         }
+      }
+    }
+    if constexpr (TILED) {
+      // the frame's rest geometry: the wrapper's summed shifts
+      const float* sh = jshift + static_cast<size_t>(f) * 6 * J + j * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        tr[c] += sh[c];
+        jn[c] = jnts[j * 3 + c] + sh[3 * J + c];
       }
     }
 #pragma unroll
@@ -126,7 +145,7 @@ fk_smalls_kernel(const float* __restrict__ theta,
   for (int i = 0; i < 9; ++i) Gr[i] = G[lf][j][i];
 #pragma unroll
   for (int c = 0; c < 3; ++c) Gt[c] = G[lf][j][9 + c];
-  if constexpr (!EXT) {
+  if constexpr (!EXT && !TILED) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) jn[c] = jnts[j * 3 + c];
   }
@@ -156,6 +175,10 @@ fk_smalls_kernel(const float* __restrict__ theta,
     for (int i = 0; i < 9; ++i) Q[i] = G[lf][par][i];
 #pragma unroll
     for (int c = 0; c < 3; ++c) bb[c] = G[lf][par][9 + c];
+  }
+  if constexpr (TILED) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) qout[fj * 9 + i] = Q[i];
   }
   // dRRt[a][c][t] = sum_b dR[a][b][t] R[c][b];  u[a][t] = -sum_b dRRt[a][b][t] trel[b]
   float dRRt[27], u[9];
@@ -244,22 +267,23 @@ fk_smalls_kernel(const float* __restrict__ theta,
   }
 }
 
-template <bool EXT>
+template <bool EXT, bool TILED>
 void launch(bool with_jac, dim3 grid, dim3 block, cudaStream_t s,
             const float* theta, const int* parents, const int* depth,
             int max_depth, const float* jnts, const float* trel, int F, int J,
             float* grot, float* atr, float* feat, float* wrot, float* wtr,
             float* dr, int E, const float* extra, const float* djnt,
             const float* dtrel, const unsigned long long* ancmask,
-            float* datr) {
+            float* datr, const float* jshift, float* q) {
   if (with_jac)
-    fk_smalls_kernel<true, EXT><<<grid, block, 0, s>>>(
+    fk_smalls_kernel<true, EXT, TILED><<<grid, block, 0, s>>>(
         theta, parents, depth, max_depth, jnts, trel, F, J, grot, atr, feat,
-        wrot, wtr, dr, E, extra, djnt, dtrel, ancmask, datr);
+        wrot, wtr, dr, E, extra, djnt, dtrel, ancmask, datr, jshift, q);
   else
-    fk_smalls_kernel<false, EXT><<<grid, block, 0, s>>>(
+    fk_smalls_kernel<false, EXT, TILED><<<grid, block, 0, s>>>(
         theta, parents, depth, max_depth, jnts, trel, F, J, grot, atr, feat,
-        nullptr, nullptr, nullptr, E, extra, djnt, dtrel, nullptr, nullptr);
+        nullptr, nullptr, nullptr, E, extra, djnt, dtrel, nullptr, nullptr,
+        jshift, nullptr);
 }
 
 }  // namespace
@@ -280,12 +304,35 @@ extern "C" int fk_smalls_launch(int with_jac, const float* theta,
   const dim3 grid((F + kFPB - 1) / kFPB);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (E > 0)
-    launch<true>(with_jac != 0, grid, block, s, theta, parents, depth,
-                 max_depth, jnts, trel, F, J, grot, atr, feat, wrot, wtr, dr,
-                 E, extra, djnt, dtrel, ancmask, datr);
+    launch<true, false>(with_jac != 0, grid, block, s, theta, parents, depth,
+                        max_depth, jnts, trel, F, J, grot, atr, feat, wrot,
+                        wtr, dr, E, extra, djnt, dtrel, ancmask, datr,
+                        nullptr, nullptr);
   else
-    launch<false>(with_jac != 0, grid, block, s, theta, parents, depth,
-                  max_depth, jnts, trel, F, J, grot, atr, feat, wrot, wtr, dr,
-                  0, nullptr, nullptr, nullptr, nullptr, nullptr);
+    launch<false, false>(with_jac != 0, grid, block, s, theta, parents,
+                         depth, max_depth, jnts, trel, F, J, grot, atr, feat,
+                         wrot, wtr, dr, 0, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, nullptr, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tiled route: jshift (F, 2, J, 3) in; with the Jacobian q (F, J, 3, 3)
+// out.
+extern "C" int fk_smalls_tiled_launch(int with_jac, const float* theta,
+                                      const int* parents, const int* depth,
+                                      int max_depth, const float* jnts,
+                                      const float* trel, int F, int J,
+                                      float* grot, float* atr, float* feat,
+                                      float* wrot, float* wtr, float* dr,
+                                      const float* jshift, float* q,
+                                      void* stream) {
+  if (J < 1 || J > kJT || F < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 block(kJT, kFPB);
+  const dim3 grid((F + kFPB - 1) / kFPB);
+  launch<false, true>(with_jac != 0, grid, block,
+                      static_cast<cudaStream_t>(stream), theta, parents,
+                      depth, max_depth, jnts, trel, F, J, grot, atr, feat,
+                      wrot, wtr, dr, 0, nullptr, nullptr, nullptr, nullptr,
+                      nullptr, jshift, q);
   return static_cast<int>(cudaGetLastError());
 }

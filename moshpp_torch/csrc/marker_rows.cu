@@ -1,11 +1,13 @@
-// marker_rows<WITH_JAC, EXT>: simulated markers and, with the Jacobian,
-// their exact (trans, pose, extras) Jacobian rows.
+// marker_rows<WITH_JAC, EXT, TILED>: simulated markers and, with the
+// Jacobian, their exact (trans, pose, extras) Jacobian rows.
 //
 // Replaces the Pallas TPU kernels of moshpp_tpu/ops/pallas_marker_jac.py
 // (bodies `_marker_impl` and `_sim_marker_impl`):
-//   <true, false>  `_marker_kernel`       <false, false>  `_sim_marker_kernel`
-//   <true, true>   `_marker_kernel_ext`   <false, true>   `_sim_marker_kernel_ext`
-// Plain version: moshpp_torch/ops/marker_jac.marker_rows_plain.
+//   <true, false, false>  `_marker_kernel`        <false, ...>  `_sim_marker_kernel`
+//   <true, true, false>   `_marker_kernel_ext`    <false, ...>  `_sim_marker_kernel_ext`
+//   <true, false, true>   `_marker_kernel_tiled`  <false, ...>  `_sim_marker_kernel_tiled`
+// Plain versions: moshpp_torch/ops/marker_jac.marker_rows_plain and
+// marker_rows_tiled_plain.
 //
 // Per (frame, marker): skin the marker's 3 frame vertices (pose blend,
 // weighted transforms), rebuild the marker in its local frame, and with the
@@ -20,6 +22,14 @@
 // same local-frame blocks as the pose columns: the jm row grows from
 // 3 x (3+P) to 3 x (3+P+E) floats. The E = 0 instantiations carry none of
 // this code, and their shared-memory layout is unchanged.
+//
+// With TILED (the tiled extras route, any E) the wrapper has summed the
+// vertex shift, vpshift[f][m] = sum_e x_e dv_e (3 verts x 3), which joins
+// the float64 pose-blend sum; the program has no E loop and the E = 0
+// shared-memory layout. It writes jm's first 3+P columns of the (F, M, 3, D)
+// buffer and, with the Jacobian, the marker's chain factors
+// uv[f][m] = [U = dms (k, c, d); V = dms T_rot (k, c, z)] (54 floats), from
+// which extras_cols.cu writes the last E columns.
 //
 // Precision: the frame vertices and the local frame (marker position and
 // its 3x3 derivative blocks) are computed in float64 from the float32
@@ -161,7 +171,7 @@ __device__ void local_frame(const double v[3][3], const float cf[3],
   }
 }
 
-template <bool WITH_JAC, bool EXT>
+template <bool WITH_JAC, bool EXT, bool TILED>
 __global__ void __launch_bounds__(kThreads)
 marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
                    const float* __restrict__ grot,
@@ -180,7 +190,10 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
                    float* __restrict__ jm, int E,
                    const float* __restrict__ extra,
                    const float* __restrict__ datr,
-                   const float* __restrict__ dv) {
+                   const float* __restrict__ dv,
+                   const float* __restrict__ vpshift,
+                   float* __restrict__ uv) {
+  static_assert(!(EXT && TILED), "one extras route at a time");
   extern __shared__ float smem[];
   __shared__ unsigned long long s_anc[64];
   __shared__ double s_vpd[9];    // [k][c] posed rest position, float64
@@ -272,6 +285,9 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
           for (int e = 0; e < E; ++e)
             acc += static_cast<double>(s_ex[e]) * s_dv[(k * E + e) * 3 + c];
         }
+        if constexpr (TILED)
+          acc += static_cast<double>(
+              vpshift[(static_cast<size_t>(f) * M + m) * 9 + r]);
         s_vpd[r] = s_vsh[r] + acc;
         s_vp[r] = static_cast<float>(s_vsh[r] + acc);
       }
@@ -351,6 +367,22 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
       s_S[(k * J + j) * 3 + 1] = a1;
       s_S[(k * J + j) * 3 + 2] = a2;
     }
+    if constexpr (TILED) {
+      // the chain factors for extras_cols: U[k][c][d] = dms, then
+      // V[k][c][z] = sum_d dms[k][c][d] T_rot[k][d][z]; counted from the
+      // block's end, where the S sweep leaves threads idle
+      float* dst = uv + (static_cast<size_t>(f) * M + m) * 54;
+      for (int it = blockDim.x - 1 - tid; it < 54; it += blockDim.x) {
+        if (it < 27) {
+          dst[it] = s_dms[it];
+        } else {
+          const int k = (it - 27) / 9, c = ((it - 27) / 3) % 3, z = it % 3;
+          const float* dk = s_dms + k * 9 + c * 3;
+          const float* Tk = s_Trot + k * 9;
+          dst[it] = dk[0] * Tk[z] + dk[1] * Tk[3 + z] + dk[2] * Tk[6 + z];
+        }
+      }
+    }
     __syncthreads();
 
     // ---- full-pose columns (j, t), folded through the marker frame ----------
@@ -408,7 +440,8 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
     // A thread owns column d of all three rows: a hand column's three dot
     // products share each component load and run as independent chains.
     float* row = jm + (static_cast<size_t>(f) * M + m) * 3 * D;
-    for (int d = tid; d < D; d += blockDim.x) {
+    const int D_out = TILED ? D - E : D;   // TILED: extras_cols writes the rest
+    for (int d = tid; d < D_out; d += blockDim.x) {
       float v0, v1, v2;
       if (d < 3) {
         v0 = d == 0 ? 1.f : 0.f;
@@ -441,7 +474,7 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
   }
 }
 
-template <bool EXT>
+template <bool EXT, bool TILED>
 cudaError_t launch(bool with_jac, dim3 grid, size_t bytes, cudaStream_t s,
                    int F, int M, int J, int featN, int body_dof, int D,
                    const float* grot, const float* atr, const float* feat,
@@ -450,22 +483,23 @@ cudaError_t launch(bool with_jac, dim3 grid, size_t bytes, cudaStream_t s,
                    const float* vsh3, const float* pd3, const float* cf,
                    const unsigned long long* ancmask, const float* hc,
                    float* sim, float* jm, int E, const float* extra,
-                   const float* datr, const float* dv) {
+                   const float* datr, const float* dv, const float* vpshift,
+                   float* uv) {
   cudaError_t err;
   if (with_jac) {
-    err = allow_smem(marker_rows_kernel<true, EXT>, bytes);
+    err = allow_smem(marker_rows_kernel<true, EXT, TILED>, bytes);
     if (err != cudaSuccess) return err;
-    marker_rows_kernel<true, EXT><<<grid, kThreads, bytes, s>>>(
+    marker_rows_kernel<true, EXT, TILED><<<grid, kThreads, bytes, s>>>(
         F, M, J, featN, body_dof, D, grot, atr, feat, wrot, wtr, dr,
         trans, w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm, E, extra, datr,
-        dv);
+        dv, vpshift, uv);
   } else {
-    err = allow_smem(marker_rows_kernel<false, EXT>, bytes);
+    err = allow_smem(marker_rows_kernel<false, EXT, TILED>, bytes);
     if (err != cudaSuccess) return err;
-    marker_rows_kernel<false, EXT><<<grid, kThreads, bytes, s>>>(
+    marker_rows_kernel<false, EXT, TILED><<<grid, kThreads, bytes, s>>>(
         F, M, J, featN, body_dof, D, grot, atr, feat, nullptr,
         nullptr, nullptr, trans, w3, nullptr, vsh3, pd3, cf, nullptr, nullptr,
-        sim, nullptr, E, extra, nullptr, dv);
+        sim, nullptr, E, extra, nullptr, dv, vpshift, nullptr);
   }
   return cudaGetLastError();
 }
@@ -490,13 +524,37 @@ extern "C" int marker_rows_launch(
   const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      E > 0 ? launch<true>(with_jac != 0, grid, bytes, s, F, M, J, featN,
-                           body_dof, D, grot, atr, feat, wrot, wtr, dr, trans,
-                           w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm, E,
-                           extra, datr, dv)
-            : launch<false>(with_jac != 0, grid, bytes, s, F, M, J, featN,
-                            body_dof, D, grot, atr, feat, wrot, wtr, dr,
-                            trans, w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm,
-                            0, nullptr, nullptr, nullptr);
+      E > 0 ? launch<true, false>(with_jac != 0, grid, bytes, s, F, M, J,
+                                  featN, body_dof, D, grot, atr, feat, wrot,
+                                  wtr, dr, trans, w3, s3, vsh3, pd3, cf,
+                                  ancmask, hc, sim, jm, E, extra, datr, dv,
+                                  nullptr, nullptr)
+            : launch<false, false>(with_jac != 0, grid, bytes, s, F, M, J,
+                                   featN, body_dof, D, grot, atr, feat, wrot,
+                                   wtr, dr, trans, w3, s3, vsh3, pd3, cf,
+                                   ancmask, hc, sim, jm, 0, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr);
   return static_cast<int>(err);
+}
+
+// The tiled route: vpshift (F, M, 3, 3) in; with the Jacobian jm's first
+// D - E columns (row stride D) and uv (F, M, 54) out.
+extern "C" int marker_rows_tiled_launch(
+    int with_jac, int F, int M, int J, int featN, int body_dof, int hand_dof,
+    int D, int E, const float* grot, const float* atr, const float* feat,
+    const float* wrot, const float* wtr, const float* dr, const float* trans,
+    const float* w3, const float* s3, const float* vsh3, const float* pd3,
+    const float* cf, const unsigned long long* ancmask, const float* hc,
+    const float* vpshift, float* sim, float* jm, float* uv, void* stream) {
+  if (F < 1 || M < 1 || M > 65535 || J < 1 || J > 64 || E < 1 ||
+      D != 3 + body_dof + hand_dof + E)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L(with_jac != 0, J, featN, 0);
+  const size_t bytes = static_cast<size_t>(L.total) * sizeof(float);
+  const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
+  return static_cast<int>(launch<false, true>(
+      with_jac != 0, grid, bytes, static_cast<cudaStream_t>(stream), F, M, J,
+      featN, body_dof, D, grot, atr, feat, wrot, wtr, dr, trans, w3, s3, vsh3,
+      pd3, cf, ancmask, hc, sim, jm, E, nullptr, nullptr, nullptr, vpshift,
+      uv));
 }

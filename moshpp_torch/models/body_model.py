@@ -114,8 +114,9 @@ class SurfaceModel:
 def surface_model_from_arrays(arrays: dict, model_type: str,
                               parents: Tuple[int, ...], dof_per_hand: int,
                               num_betas: int = 16, skin_k: int = 0,
-                              device="cpu") -> SurfaceModel:
-    """Build a `SurfaceModel` from numpy arrays keyed by field name.
+                              *, device) -> SurfaceModel:
+    """Build a `SurfaceModel` on `device` from numpy arrays keyed by field
+    name.
 
     Float fields become float32 tensors, `faces` int64. Missing hand arrays
     become zero-size tensors."""

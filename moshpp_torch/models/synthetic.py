@@ -187,7 +187,7 @@ def make_synthetic_model(model_type: str = "smplh",
                          dof_per_hand: int = 12,
                          seed: int = 0,
                          real_size: bool = False,
-                         device="cpu") -> SurfaceModel:
+                         *, device) -> SurfaceModel:
     """Build a synthetic `SurfaceModel` of the given family on `device`."""
     arrays = synthetic_model_arrays(model_type, num_verts, num_betas,
                                     num_shape_dirs, dof_per_hand, seed,

@@ -12,6 +12,9 @@ stages the marker kernels split it into:
                   + s_vj Wtr_{j,t} + T_rot d(v_posed)/dtheta_{j,t}, with
                   S_vj = sum_k w_vk anc_kj (A_k v_posed) and s = w @ anc.
 
+With more extra shape dims than the inline kernels take, the tiled route
+splits the extras off both stages: `extras_tangent_rows` and
+`extras_cols_rows` compute the E Jacobian columns from the stages' outputs.
 These are the plain versions of the Hopper marker kernels
 (`ops/marker_jac.py`), whose outputs use the same tensors and layouts.
 """
@@ -37,7 +40,9 @@ class JointSmalls(NamedTuple):
     grot (F, J, 3, 3), atr (F, J, 3), feat (F, J-1, 3, 3) = R - I of the
     non-root joints; with the Jacobian also wrot (F, J, 3, 3, 3) [a, d, t],
     wtr (F, J, 3, 3) [a, t] and dr (F, J, 3, 3, 3) [a, b, t]; with the
-    Jacobian and E extra shape dims also datr (F, E, J, 3) = dA_tr/dx_e."""
+    Jacobian and E extra shape dims also datr (F, E, J, 3) = dA_tr/dx_e;
+    on the tiled extras route, with the Jacobian, q (F, J, 3, 3) = the
+    parent's global rotation (identity at a root) in place of datr."""
     grot: torch.Tensor
     atr: torch.Tensor
     feat: torch.Tensor
@@ -45,21 +50,22 @@ class JointSmalls(NamedTuple):
     wtr: Optional[torch.Tensor] = None
     dr: Optional[torch.Tensor] = None
     datr: Optional[torch.Tensor] = None
+    q: Optional[torch.Tensor] = None
 
 
 def joint_smalls(theta: torch.Tensor, jnts: torch.Tensor,
                  parents: Tuple[int, ...], with_jac: bool,
                  extra: Optional[torch.Tensor] = None,
                  djnt: Optional[torch.Tensor] = None,
-                 dtrel: Optional[torch.Tensor] = None) -> JointSmalls:
-    """theta (F, J, 3) fullpose axis-angles, jnts (J, 3) shaped rest joints.
+                 dtrel: Optional[torch.Tensor] = None,
+                 emit_q: bool = False) -> JointSmalls:
+    """theta (F, J, 3) fullpose axis-angles, jnts (J, 3) shaped rest joints
+    or (F, J, 3) per frame (the tiled route's shifted rest joints).
 
     With extra shape dims, extra (F, E) shifts the rest joints per frame
     along djnt (J, E, 3), as the JAX kernels' `_frame_rest_geometry`; with
-    the Jacobian, datr is emitted in the closed form of `_smalls_impl`:
-    dA_tr_e[j] = sum over k on the root->j path of Q_k dtrel_e[k], minus
-    G_rot[j] djnt_e[j], with dtrel (J, E, 3) the parent-relative directions
-    and Q_k the global rotation of k's parent (identity at a root)."""
+    the Jacobian, datr is emitted in the closed form of `_smalls_impl`
+    (`extras_tangent_rows`). With the Jacobian and `emit_q`, q is emitted."""
     F, J, _ = theta.shape
     if with_jac:
         R, dR = rodrigues_with_grad(theta)
@@ -67,7 +73,7 @@ def joint_smalls(theta: torch.Tensor, jnts: torch.Tensor,
         R, dR = rodrigues(theta), None
     if extra is not None:
         jnts = jnts + torch.einsum("fe,jec->fjc", extra, djnt)
-    f = "f" if extra is not None else ""   # per-frame or shared rest joints
+    f = "f" if jnts.dim() == 3 else ""     # per-frame or shared rest joints
     G_rot, G_tr = fk_globals(jnts, R, parents)
     A_tr = G_tr - torch.einsum(f"fjab,{f}jb->fja", G_rot, jnts)
     eye = torch.eye(3, dtype=R.dtype, device=R.device)
@@ -88,18 +94,29 @@ def joint_smalls(theta: torch.Tensor, jnts: torch.Tensor,
     datr = None
     if extra is not None:
         anc = torch.as_tensor(_ancestor_matrix(parents), device=R.device)
-        dG = torch.einsum("jk,fkab,keb->feja", anc, Q, dtrel)
-        datr = (dG - torch.einsum("fjab,jeb->feja", G_rot, djnt)).contiguous()
+        datr = extras_tangent_rows(Q, G_rot, anc, dtrel, djnt)
     return JointSmalls(G_rot.contiguous(), A_tr.contiguous(), feat,
                        W_rot.contiguous(), W_tr.contiguous(), dR.contiguous(),
-                       datr)
+                       datr, Q.contiguous() if emit_q else None)
+
+
+def extras_tangent_rows(Q: torch.Tensor, G_rot: torch.Tensor,
+                        anc: torch.Tensor, dtrel: torch.Tensor,
+                        djnt: torch.Tensor) -> torch.Tensor:
+    """datr (F, E, J, 3) = dA_tr/dx_e: G_tr is linear in the rest offsets,
+    so dA_tr_e[j] = sum over k on the root->j path of Q_k dtrel_e[k], minus
+    G_rot[j] djnt_e[j]; Q (F, J, 3, 3) parent global rotations (identity at
+    a root), anc (J, J) ancestor mask, dtrel/djnt (J, E, 3)."""
+    dG = torch.einsum("jk,fkab,keb->feja", anc, Q, dtrel)
+    return (dG - torch.einsum("fjab,jeb->feja", G_rot, djnt)).contiguous()
 
 
 def skin_rows(sm: JointSmalls, w: torch.Tensor, s: torch.Tensor,
               vsh: torch.Tensor, pd: torch.Tensor, anc: torch.Tensor,
               trans: torch.Tensor, with_jac: bool,
               extra: Optional[torch.Tensor] = None,
-              dv: Optional[torch.Tensor] = None):
+              dv: Optional[torch.Tensor] = None,
+              vshift: Optional[torch.Tensor] = None):
     """Posed vertices (F, I, 3), in float64, and with the Jacobian their
     float32 full-pose Jacobian (F, I, 3, 3J) for I vertex rows and, with
     extra shape dims, their E extra columns (F, I, 3, E) (else None).
@@ -108,7 +125,8 @@ def skin_rows(sm: JointSmalls, w: torch.Tensor, s: torch.Tensor,
     positions; pd (I, 3, 9(J-1)) posedirs rows (width 0 without pose
     blends); anc (J, J) ancestor mask; trans (F, 3); extra (F, E) shifts the
     rest positions along dv (I, E, 3), and the extra columns are
-    sum_j w_j datr_e[j] + T_rot dv_e (`_marker_impl`).
+    sum_j w_j datr_e[j] + T_rot dv_e (`_marker_impl`). The tiled route
+    passes the shift itself, vshift (F, I, 3), and gets no extra columns.
 
     The positions are summed in float64 from the float32 inputs: a marker's
     local frame can be nearly degenerate, and its derivative then amplifies
@@ -123,6 +141,8 @@ def skin_rows(sm: JointSmalls, w: torch.Tensor, s: torch.Tensor,
                                    sm.feat.reshape(F, featN).to(f64))
     if extra is not None:
         vp64 = vp64 + torch.einsum("iec,fe->fic", dv.to(f64), extra.to(f64))
+    if vshift is not None:
+        vp64 = vp64 + vshift.to(f64)
     w64 = w.to(f64)
     T_rot64 = torch.einsum("ij,fjac->fiac", w64, sm.grot.to(f64))
     T_tr64 = torch.einsum("ij,fja->fia", w64, sm.atr.to(f64))
@@ -144,6 +164,25 @@ def skin_rows(sm: JointSmalls, w: torch.Tensor, s: torch.Tensor,
                            sm.dr[:, 1:])
         Jf[:, :, :, 1:, :] += torch.einsum("fiac,ficjt->fiajt", T_rot, dvp)
     return verts, Jf.reshape(F, I, 3, 3 * J), Je
+
+
+def extras_cols_rows(datr: torch.Tensor, uv: torch.Tensor, w3: torch.Tensor,
+                     dv: torch.Tensor) -> torch.Tensor:
+    """The E extra columns (F, M, 3, E) of the tiled route
+    (`_extras_cols_kernel`): jm[c, e] = sum_k [sum_d U_k[c][d] (w_k .
+    datr_e)[d] + sum_z V_k[c][z] dv_e[k][z]], with uv (F, M, 54) the marker
+    rows' chain factors U = dms [k][c][d] and V = dms T_rot [k][c][z],
+    w3 (M, 3, J) skinning weights, dv (M, 3, E, 3) vertex directions."""
+    F, M = uv.shape[:2]
+    J = w3.shape[-1]
+    E = datr.shape[1]
+    wdat = torch.matmul(w3.reshape(3 * M, J),
+                        datr.permute(0, 2, 1, 3).reshape(F, J, 3 * E))
+    U = uv[..., :27].reshape(F, M, 3, 3, 3)
+    V = uv[..., 27:].reshape(F, M, 3, 3, 3)
+    return (torch.einsum("fmkcd,fmked->fmce", U,
+                         wdat.reshape(F, M, 3, E, 3))
+            + torch.einsum("fmkcz,mkez->fmce", V, dv))
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:

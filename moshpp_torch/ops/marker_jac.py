@@ -1,20 +1,31 @@
 """Simulated markers and their exact (trans, pose, extras) Jacobian on the
 H100.
 
-Port of `moshpp_tpu/ops/pallas_marker_jac.py` for up to
-`MAX_INLINE_EXTRAS` extra shape dims (DMPL soft-tissue coefficients or
-expressions riding shapedirs columns). The Pallas marker kernels become two
-hand-written CUDA kernels, each templated on whether it also emits the
-Jacobian chain and on whether the problem has extra dims:
+Port of `moshpp_tpu/ops/pallas_marker_jac.py`. The Pallas marker kernels
+become hand-written CUDA kernels; the two stages are templated on whether
+they also emit the Jacobian chain and on how the problem's extra shape dims
+(DMPL soft-tissue coefficients or expressions riding shapedirs columns)
+enter:
 
-  `fk_smalls`    csrc/fk_smalls.cu    replaces `_smalls_kernel`,
-                                      `_sim_smalls_kernel` and, with
-                                      extras, `_smalls_kernel_ext`,
-                                      `_sim_smalls_kernel_ext`
-  `marker_rows`  csrc/marker_rows.cu  replaces `_marker_kernel`,
-                                      `_sim_marker_kernel` and, with
-                                      extras, `_marker_kernel_ext`,
-                                      `_sim_marker_kernel_ext`
+  `fk_smalls`       csrc/fk_smalls.cu       `_smalls_kernel`, `_sim_smalls_kernel`;
+                                            `<.,ext>` `_smalls_kernel_ext`,
+                                            `_sim_smalls_kernel_ext`;
+                                            `<.,tiled>` `_smalls_kernel_tiled`,
+                                            `_sim_smalls_kernel_tiled`
+  `marker_rows`     csrc/marker_rows.cu     `_marker_kernel`, `_sim_marker_kernel`;
+                                            `<.,ext>` `_marker_kernel_ext`,
+                                            `_sim_marker_kernel_ext`;
+                                            `<.,tiled>` `_marker_kernel_tiled`,
+                                            `_sim_marker_kernel_tiled`
+  `extras_tangent`  csrc/extras_tangent.cu  `_extras_tangent_kernel`
+  `extras_cols`     csrc/extras_cols.cu     `_extras_cols_kernel`
+
+Up to `MAX_INLINE_EXTRAS` extra dims ride inline (`<.,ext>`); wider blocks
+take the JAX package's tiled route: the per-frame shifts of the rest
+geometry are two matmuls here (`extra_shifts`), the two stages run on the
+shifted geometry (`<.,tiled>`, programs free of E), and two more kernels
+compute the E extra columns, which `extras_cols` writes into jm's last E
+columns in place.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (`ops/lbs_jacobian.py`), a CUDA tensor launches the
@@ -33,31 +44,34 @@ import torch
 from moshpp_torch import kernels
 from moshpp_torch.models.body_model import (SurfaceModel, _ancestor_matrix,
                                             effective_weights, tree_depths)
-from moshpp_torch.ops.lbs_jacobian import (JointSmalls, hand_chain,
+from moshpp_torch.ops.lbs_jacobian import (JointSmalls, extras_cols_rows,
+                                           extras_tangent_rows, hand_chain,
                                            joint_smalls, reconstruct_with_grad,
                                            skin_rows)
 from moshpp_torch.ops.marker_transform import MarkerFrameIndices
 
-FK_JAC = "fk_smalls<jac>"
-FK_SIM = "fk_smalls<sim>"
-ROWS_JAC = "marker_rows<jac>"
-ROWS_SIM = "marker_rows<sim>"
-FK_JAC_EXT = "fk_smalls<jac,ext>"
-FK_SIM_EXT = "fk_smalls<sim,ext>"
-ROWS_JAC_EXT = "marker_rows<jac,ext>"
-ROWS_SIM_EXT = "marker_rows<sim,ext>"
 MAX_JOINTS = 64   # one thread a joint, ancestor sets as 64-bit masks
-# widest extras block of the ported kernels (the JAX package's
-# INLINE_MAX_EXTRAS); wider ones take its tiled kernels, not ported yet
+# widest extras block the inline kernels take (the JAX package's
+# INLINE_MAX_EXTRAS); wider ones take the tiled route
 MAX_INLINE_EXTRAS = 16
+UV_WIDTH = 54     # the marker rows' chain factors U (27) and V (27)
 
 
-def _names(with_jac: bool, ext: bool):
-    """(fk_smalls, marker_rows) counter names of one variant."""
-    if ext:
-        return (FK_JAC_EXT, ROWS_JAC_EXT) if with_jac else (FK_SIM_EXT,
-                                                            ROWS_SIM_EXT)
-    return (FK_JAC, ROWS_JAC) if with_jac else (FK_SIM, ROWS_SIM)
+def _names(with_jac: bool, route: str = ""):
+    """(fk_smalls, marker_rows) counter names of one variant; route "" (no
+    extras), "ext" (inline extras) or "tiled"."""
+    tag = ("jac" if with_jac else "sim") + (f",{route}" if route else "")
+    return f"fk_smalls<{tag}>", f"marker_rows<{tag}>"
+
+
+FK_JAC, ROWS_JAC = _names(True)
+FK_SIM, ROWS_SIM = _names(False)
+FK_JAC_EXT, ROWS_JAC_EXT = _names(True, "ext")
+FK_SIM_EXT, ROWS_SIM_EXT = _names(False, "ext")
+FK_JAC_TILED, ROWS_JAC_TILED = _names(True, "tiled")
+FK_SIM_TILED, ROWS_SIM_TILED = _names(False, "tiled")
+TANGENT = "extras_tangent"
+COLS = "extras_cols"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +99,9 @@ class MarkerJacTables:
     djnt: torch.Tensor         # (J, E, 3) rest-joint directions
     dtrel: torch.Tensor        # (J, E, 3) parent-relative directions
     dv: torch.Tensor           # (M, 3, E, 3) frame-vertex directions [m, k, e, c]
+    # the same directions laid out for the tiled route's shift matmuls
+    jdirs: torch.Tensor        # (E, 2 * J * 3) rows [dtrel_e; djnt_e]
+    vdirs: torch.Tensor        # (E, M * 9) rows dv_e [m, k, c]
 
     @property
     def num_markers(self) -> int:
@@ -106,6 +123,13 @@ class MarkerJacTables:
     def dof(self) -> int:
         return 3 + self.body_dof + self.hand_dof + self.n_extra
 
+    @property
+    def route(self) -> str:
+        """The kernels' extras route: "" (none), "ext" (inline) or
+        "tiled"."""
+        E = self.n_extra
+        return "" if E == 0 else ("ext" if E <= MAX_INLINE_EXTRAS else "tiled")
+
 
 def prepare_marker_jac_tables(model: SurfaceModel,
                               idx: MarkerFrameIndices,
@@ -126,10 +150,6 @@ def prepare_marker_jac_tables(model: SurfaceModel,
         raise ValueError(f"{J} joints: the marker kernels take <= {MAX_JOINTS}")
     cols = np.asarray([] if extra_cols is None else extra_cols, np.int64)
     E = len(cols)
-    if E > MAX_INLINE_EXTRAS:
-        raise NotImplementedError(
-            f"{E} extra shape dims: more than {MAX_INLINE_EXTRAS} take the "
-            "tiled extras kernels (Pallas K10-K16), not ported yet")
     if E and int(cols.max()) >= model.num_shape_dirs:
         raise ValueError(f"extra column {int(cols.max())} beyond shapedirs "
                          f"width {model.num_shape_dirs}")
@@ -194,6 +214,9 @@ def prepare_marker_jac_tables(model: SurfaceModel,
         djnt=t(djnt),
         dtrel=t(dtrel),
         dv=t(dv),
+        jdirs=t(np.stack([dtrel, djnt]).transpose(2, 0, 1, 3).reshape(
+            E, 6 * J)),
+        vdirs=t(dv.transpose(2, 0, 1, 3).reshape(E, 9 * M)),
     )
 
 
@@ -208,12 +231,21 @@ def _check_extra(tables: MarkerJacTables, extra, F: int) -> None:
         raise ValueError(f"extra: the tables have E={E} extra dims, got {got}")
 
 
+def _inline_route(tables: MarkerJacTables) -> str:
+    """The route of the inline stages: "" or "ext"; raise for tables whose
+    extras only the tiled route takes."""
+    if tables.n_extra > MAX_INLINE_EXTRAS:
+        raise ValueError(f"{tables.n_extra} extra dims: more than "
+                         f"{MAX_INLINE_EXTRAS} take the tiled route")
+    return "ext" if tables.n_extra else ""
+
+
 def fk_smalls_plain(theta: torch.Tensor, tables: MarkerJacTables,
                     with_jac: bool,
                     extra: Optional[torch.Tensor] = None) -> JointSmalls:
     """Plain PyTorch version of the `fk_smalls` kernel."""
     _check_extra(tables, extra, theta.shape[0])
-    kernels.note_plain(_names(with_jac, extra is not None)[0], theta)
+    kernels.note_plain(_names(with_jac, _inline_route(tables))[0], theta)
     return joint_smalls(theta, tables.jnts, tables.parents, with_jac,
                         extra, tables.djnt, tables.dtrel)
 
@@ -240,7 +272,8 @@ def fk_smalls(theta: torch.Tensor, tables: MarkerJacTables,
                      datr=e(F, E, J, 3) if with_jac and E else None)
     p = kernels.ptr
     kernels.launch(
-        "fk_smalls_launch", _names(with_jac, E > 0)[0], int(with_jac),
+        "fk_smalls_launch", _names(with_jac, _inline_route(tables))[0],
+        int(with_jac),
         p(theta), p(tables.parents_t), p(tables.depth_t), tables.max_depth,
         p(tables.jnts), p(tables.trel), F, J, p(sm.grot), p(sm.atr),
         p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), E, p(extra),
@@ -250,26 +283,28 @@ def fk_smalls(theta: torch.Tensor, tables: MarkerJacTables,
 
 # ---- marker_rows -------------------------------------------------------------
 
-def marker_rows_plain(sm: JointSmalls, trans: torch.Tensor,
-                      tables: MarkerJacTables, with_jac: bool,
-                      extra: Optional[torch.Tensor] = None):
-    """Plain PyTorch version of the `marker_rows` kernel: (sim (F, M, 3),
-    jm (F, M, 3, D) or None)."""
+def _rows_plain(sm: JointSmalls, trans: torch.Tensor,
+                tables: MarkerJacTables, with_jac: bool,
+                extra: Optional[torch.Tensor] = None,
+                vshift: Optional[torch.Tensor] = None):
+    """The marker rows' arithmetic: (sim (F, M, 3), the local-frame blocks
+    dms (F, M, 3, 3, 3) and jm's column blocks [trans, pose(, extras)]),
+    the last two None without the Jacobian. extra (F, E) moves the frame
+    vertices along the tables' dv and adds E columns; the tiled route
+    passes the summed shift vshift (F, 3M, 3) instead."""
     F = trans.shape[0]
-    _check_extra(tables, extra, F)
-    kernels.note_plain(_names(with_jac, extra is not None)[1], trans)
     M, J = tables.num_markers, tables.num_joints
     verts, Jfull, Je = skin_rows(
         sm, tables.w3.reshape(3 * M, J), tables.s3.reshape(3 * M, J),
         tables.vsh3.reshape(3 * M, 3), tables.pd3.reshape(3 * M, 3, -1),
         tables.anc, trans, with_jac, extra,
-        tables.dv.reshape(3 * M, -1, 3))
+        tables.dv.reshape(3 * M, -1, 3), vshift)
     # the local frame in float64, as the kernel computes it
     sim, dms = reconstruct_with_grad(verts.reshape(F, M, 3, 3),
                                      tables.cf.to(verts.dtype))
     sim, dms = sim.to(trans.dtype), dms.to(trans.dtype)
     if not with_jac:
-        return sim, None
+        return sim, None, None
     # fold the marker frame into the columns first: 3 rows through the
     # hand-PCA product instead of 9 (the kernel's order)
     U = torch.einsum("fmkca,fmkaq->fmcq", dms,
@@ -280,7 +315,18 @@ def marker_rows_plain(sm: JointSmalls, trans: torch.Tensor,
     if Je is not None:
         cols.append(torch.einsum("fmkca,fmkae->fmce", dms,
                                  Je.reshape(F, M, 3, 3, -1)))
-    return sim, torch.cat(cols, dim=-1)
+    return sim, dms, cols
+
+
+def marker_rows_plain(sm: JointSmalls, trans: torch.Tensor,
+                      tables: MarkerJacTables, with_jac: bool,
+                      extra: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the `marker_rows` kernel: (sim (F, M, 3),
+    jm (F, M, 3, D) or None)."""
+    _check_extra(tables, extra, trans.shape[0])
+    kernels.note_plain(_names(with_jac, _inline_route(tables))[1], trans)
+    sim, _, cols = _rows_plain(sm, trans, tables, with_jac, extra)
+    return sim, None if cols is None else torch.cat(cols, dim=-1)
 
 
 def marker_rows(sm: JointSmalls, trans: torch.Tensor,
@@ -311,13 +357,189 @@ def marker_rows(sm: JointSmalls, trans: torch.Tensor,
           if with_jac else None)
     p = kernels.ptr
     kernels.launch(
-        "marker_rows_launch", _names(with_jac, E > 0)[1],
+        "marker_rows_launch", _names(with_jac, _inline_route(tables))[1],
         int(with_jac), F, M, J, tables.feat_n, tables.body_dof,
         tables.hand_dof, D, p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot),
         p(sm.wtr), p(sm.dr), p(trans), p(tables.w3), p(tables.s3),
         p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
         p(tables.hc), p(sim), p(jm), E, p(extra), p(sm.datr), p(tables.dv))
     return sim, jm
+
+
+# ---- the tiled extras route ---------------------------------------------------
+
+def extra_shifts(tables: MarkerJacTables, extra: torch.Tensor):
+    """Per-frame shifts of the rest geometry along the E extra directions,
+    two matmuls (the JAX package's `_tiled_extra_inputs` leaves them to
+    XLA): jshift (F, 2, J, 3) = [sum_e x_e dtrel_e; sum_e x_e djnt_e] and
+    vpshift (F, M, 3, 3) = sum_e x_e dv_e [m, k, c]."""
+    F = extra.shape[0]
+    jshift = torch.matmul(extra, tables.jdirs).reshape(
+        F, 2, tables.num_joints, 3)
+    vpshift = torch.matmul(extra, tables.vdirs).reshape(
+        F, tables.num_markers, 3, 3)
+    return jshift.contiguous(), vpshift.contiguous()
+
+
+def fk_smalls_tiled_plain(theta: torch.Tensor, jshift: torch.Tensor,
+                          tables: MarkerJacTables,
+                          with_jac: bool) -> JointSmalls:
+    """Plain PyTorch version of `fk_smalls<., tiled>`."""
+    kernels.note_plain(_names(with_jac, "tiled")[0], theta)
+    return joint_smalls(theta, tables.jnts + jshift[:, 1], tables.parents,
+                        with_jac, emit_q=with_jac)
+
+
+def fk_smalls_tiled(theta: torch.Tensor, jshift: torch.Tensor,
+                    tables: MarkerJacTables, with_jac: bool) -> JointSmalls:
+    """Per-frame joint quantities on the rest geometry shifted by jshift
+    (F, 2, J, 3); with the Jacobian also q (F, J, 3, 3), no datr."""
+    if not theta.is_cuda:
+        return fk_smalls_tiled_plain(theta, jshift, tables, with_jac)
+    F, J = theta.shape[0], tables.num_joints
+    kernels.check("theta", theta, (F, J, 3))
+    kernels.check("jshift", jshift, (F, 2, J, 3))
+    e = lambda *s: torch.empty(s, dtype=torch.float32, device=theta.device)
+    sm = JointSmalls(grot=e(F, J, 3, 3), atr=e(F, J, 3),
+                     feat=e(F, J - 1, 3, 3),
+                     wrot=e(F, J, 3, 3, 3) if with_jac else None,
+                     wtr=e(F, J, 3, 3) if with_jac else None,
+                     dr=e(F, J, 3, 3, 3) if with_jac else None,
+                     q=e(F, J, 3, 3) if with_jac else None)
+    p = kernels.ptr
+    kernels.launch(
+        "fk_smalls_tiled_launch", _names(with_jac, "tiled")[0], int(with_jac),
+        p(theta), p(tables.parents_t), p(tables.depth_t), tables.max_depth,
+        p(tables.jnts), p(tables.trel), F, J, p(sm.grot), p(sm.atr),
+        p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), p(jshift), p(sm.q))
+    return sm
+
+
+def extras_tangent_plain(q: torch.Tensor, grot: torch.Tensor,
+                         tables: MarkerJacTables) -> torch.Tensor:
+    """Plain PyTorch version of `extras_tangent`."""
+    kernels.note_plain(TANGENT, q)
+    return extras_tangent_rows(q, grot, tables.anc, tables.dtrel, tables.djnt)
+
+
+def extras_tangent(q: torch.Tensor, grot: torch.Tensor,
+                   tables: MarkerJacTables) -> torch.Tensor:
+    """datr (F, E, J, 3) = dA_tr/dx_e from the tiled stage's q and grot."""
+    if not q.is_cuda:
+        return extras_tangent_plain(q, grot, tables)
+    F, J, E = q.shape[0], tables.num_joints, tables.n_extra
+    kernels.check("q", q, (F, J, 3, 3))
+    kernels.check("grot", grot, (F, J, 3, 3))
+    datr = torch.empty((F, E, J, 3), dtype=torch.float32, device=q.device)
+    p = kernels.ptr
+    kernels.launch("extras_tangent_launch", TANGENT, F, J, E, p(q), p(grot),
+                   p(tables.dtrel), p(tables.djnt), p(tables.ancmask),
+                   p(datr))
+    return datr
+
+
+def marker_rows_tiled_plain(sm: JointSmalls, trans: torch.Tensor,
+                            vpshift: torch.Tensor, tables: MarkerJacTables,
+                            with_jac: bool):
+    """Plain PyTorch version of `marker_rows<., tiled>`: (sim (F, M, 3),
+    jm (F, M, 3, D) with its last E columns zero, uv (F, M, 54)), the last
+    two None without the Jacobian."""
+    F = trans.shape[0]
+    kernels.note_plain(_names(with_jac, "tiled")[1], trans)
+    M, J = tables.num_markers, tables.num_joints
+    sim, dms, cols = _rows_plain(sm, trans, tables, with_jac,
+                                 vshift=vpshift.reshape(F, 3 * M, 3))
+    if not with_jac:
+        return sim, None, None
+    jm = torch.cat([*cols, sim.new_zeros((F, M, 3, tables.n_extra))], dim=-1)
+    # V = dms T_rot, T_rot rounded to float32 as the skinning rows round it
+    T_rot = torch.einsum("ij,fjac->fiac", tables.w3.reshape(3 * M, J).double(),
+                         sm.grot.double()).to(trans.dtype)
+    V = torch.einsum("fmkcd,fmkdz->fmkcz", dms, T_rot.reshape(F, M, 3, 3, 3))
+    uv = torch.cat([dms.reshape(F, M, 27), V.reshape(F, M, 27)], dim=-1)
+    return sim, jm, uv
+
+
+def marker_rows_tiled(sm: JointSmalls, trans: torch.Tensor,
+                      vpshift: torch.Tensor, tables: MarkerJacTables,
+                      with_jac: bool):
+    """Simulated markers (F, M, 3) on frame vertices shifted by vpshift
+    (F, M, 3, 3) and, with the Jacobian, jm (F, M, 3, D) with its first
+    3 + P columns written and the chain factors uv (F, M, 54)."""
+    if not trans.is_cuda:
+        return marker_rows_tiled_plain(sm, trans, vpshift, tables, with_jac)
+    F = trans.shape[0]
+    M, J, D, E = (tables.num_markers, tables.num_joints, tables.dof,
+                  tables.n_extra)
+    kernels.check("trans", trans, (F, 3))
+    kernels.check("vpshift", vpshift, (F, M, 3, 3))
+    kernels.check("grot", sm.grot, (F, J, 3, 3))
+    kernels.check("atr", sm.atr, (F, J, 3))
+    kernels.check("feat", sm.feat, (F, J - 1, 3, 3))
+    if with_jac:
+        kernels.check("wrot", sm.wrot, (F, J, 3, 3, 3))
+        kernels.check("wtr", sm.wtr, (F, J, 3, 3))
+        kernels.check("dr", sm.dr, (F, J, 3, 3, 3))
+    e = lambda *s: torch.empty(s, dtype=torch.float32, device=trans.device)
+    sim = e(F, M, 3)
+    jm = e(F, M, 3, D) if with_jac else None
+    uv = e(F, M, UV_WIDTH) if with_jac else None
+    p = kernels.ptr
+    kernels.launch(
+        "marker_rows_tiled_launch", _names(with_jac, "tiled")[1],
+        int(with_jac), F, M, J, tables.feat_n, tables.body_dof,
+        tables.hand_dof, D, E, p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot),
+        p(sm.wtr), p(sm.dr), p(trans), p(tables.w3), p(tables.s3),
+        p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
+        p(tables.hc), p(vpshift), p(sim), p(jm), p(uv))
+    return sim, jm, uv
+
+
+def extras_cols_plain(datr: torch.Tensor, uv: torch.Tensor,
+                      tables: MarkerJacTables, jm: torch.Tensor):
+    """Plain PyTorch version of `extras_cols`."""
+    kernels.note_plain(COLS, datr)
+    jm[..., tables.dof - tables.n_extra:] = extras_cols_rows(
+        datr, uv, tables.w3, tables.dv)
+    return jm
+
+
+def extras_cols(datr: torch.Tensor, uv: torch.Tensor,
+                tables: MarkerJacTables, jm: torch.Tensor) -> torch.Tensor:
+    """Write the E extra columns into jm (F, M, 3, D)[..., D - E:] in place,
+    from datr (F, E, J, 3) and the marker rows' uv (F, M, 54); returns jm."""
+    if not datr.is_cuda:
+        return extras_cols_plain(datr, uv, tables, jm)
+    F = datr.shape[0]
+    M, J, D, E = (tables.num_markers, tables.num_joints, tables.dof,
+                  tables.n_extra)
+    kernels.check("datr", datr, (F, E, J, 3))
+    kernels.check("uv", uv, (F, M, UV_WIDTH))
+    kernels.check("jm", jm, (F, M, 3, D))
+    p = kernels.ptr
+    kernels.launch("extras_cols_launch", COLS, F, M, J, E, D, p(datr), p(uv),
+                   p(tables.w3), p(tables.dv), p(jm))
+    return jm
+
+
+def sim_and_jacobian_tiled(model: SurfaceModel, tables: MarkerJacTables,
+                           x: torch.Tensor):
+    """The tiled extras route of `marker_sim_and_jacobian` (any E >= 1)."""
+    theta, trans, extra = kernel_inputs(model, tables, x)
+    jshift, vpshift = extra_shifts(tables, extra)
+    sm = fk_smalls_tiled(theta, jshift, tables, True)
+    datr = extras_tangent(sm.q, sm.grot, tables)
+    sim, jm, uv = marker_rows_tiled(sm, trans, vpshift, tables, True)
+    return sim, extras_cols(datr, uv, tables, jm)
+
+
+def sim_tiled(model: SurfaceModel, tables: MarkerJacTables,
+              x: torch.Tensor) -> torch.Tensor:
+    """The tiled extras route of `marker_sim` (any E >= 1)."""
+    theta, trans, extra = kernel_inputs(model, tables, x)
+    jshift, vpshift = extra_shifts(tables, extra)
+    return marker_rows_tiled(fk_smalls_tiled(theta, jshift, tables, False),
+                             trans, vpshift, tables, False)[0]
 
 
 # ---- public entry points -----------------------------------------------------
@@ -349,7 +571,10 @@ def kernel_inputs(model: SurfaceModel, tables: MarkerJacTables,
 
 def marker_sim_and_jacobian(model: SurfaceModel, tables: MarkerJacTables,
                             x: torch.Tensor):
-    """x (F, 3+P+E) -> (sim (F, M, 3), jm (F, M, 3, 3+P+E))."""
+    """x (F, 3+P+E) -> (sim (F, M, 3), jm (F, M, 3, 3+P+E)); more than
+    `MAX_INLINE_EXTRAS` extra dims take the tiled route."""
+    if tables.route == "tiled":
+        return sim_and_jacobian_tiled(model, tables, x)
     theta, trans, extra = kernel_inputs(model, tables, x)
     return marker_rows(fk_smalls(theta, tables, True, extra), trans, tables,
                        True, extra)
@@ -358,6 +583,8 @@ def marker_sim_and_jacobian(model: SurfaceModel, tables: MarkerJacTables,
 def marker_sim(model: SurfaceModel, tables: MarkerJacTables,
                x: torch.Tensor) -> torch.Tensor:
     """x (F, 3+P+E) -> simulated markers (F, M, 3), no derivative chain."""
+    if tables.route == "tiled":
+        return sim_tiled(model, tables, x)
     theta, trans, extra = kernel_inputs(model, tables, x)
     return marker_rows(fk_smalls(theta, tables, False, extra), trans, tables,
                        False, extra)[0]

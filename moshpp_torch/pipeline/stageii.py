@@ -1,10 +1,12 @@
 """Stage II — per-frame pose (+trans) estimation, batched over frames.
 
 Port of `moshpp_tpu/pipeline/stageii.py` for the main path: the unchunked
-`mosh_stageii_solve` schedule with a GMM (or no) body prior and, with
-`optimize_dynamics`, up to 16 DMPL soft-tissue coefficients a frame (extra
-shape dims riding shapedirs columns [num_betas, num_betas + num_dmpls)).
-The frame axis is data-parallel exactly as in the JAX package:
+`mosh_stageii_solve` schedule with a GMM (or no) body prior and per-frame
+extra shape dims riding shapedirs columns: with `optimize_dynamics` DMPL
+soft-tissue coefficients (columns [num_betas, num_betas + num_dmpls)), with
+`optimize_face` expressions (columns from `expr_start`, SMPL-X's 300) and
+the jaw. Any number of them: more than 16 take the marker kernels' tiled
+route. The frame axis is data-parallel exactly as in the JAX package:
 
   pass A: every S-th frame (anchor) gets the reference's first-frame
     treatment (rigid init, annealed prior solves [10w, 5w, w], a full-pose
@@ -23,8 +25,7 @@ regularizers as analytic blocks. The direction is the fused dogleg kernel
 the polish runs deep PCG through the kernel.
 
 Not ported yet (raise NotImplementedError): chunked solves of long
-sequences, `return_report`, `on_phase`, `mesh`, expressions
-(`optimize_face`), more than 16 DMPL dims, callable priors and
+sequences, `return_report`, `on_phase`, `mesh`, callable priors and
 non-contiguous prior slices.
 """
 
@@ -40,8 +41,9 @@ import torch
 from moshpp_torch.models.body_model import (MODEL_TYPE_INFO, SurfaceModel,
                                             fullpose_from_pose, lbs_forward,
                                             pose_part_ids)
-from moshpp_torch.ops.marker_jac import (MAX_INLINE_EXTRAS, MarkerJacTables,
-                                         marker_sim, marker_sim_and_jacobian,
+from moshpp_torch.markers.vids import smplx_eyeball_mask
+from moshpp_torch.ops.marker_jac import (MarkerJacTables, marker_sim,
+                                         marker_sim_and_jacobian,
                                          prepare_marker_jac_tables, split_x)
 from moshpp_torch.ops.marker_transform import (MarkerFrameIndices,
                                                marker_coeffs,
@@ -57,8 +59,8 @@ NUM_TRAIN_MARKERS = 46.0  # weight-normalization constant (chmosh.py:460)
 
 DEFAULT_STAGEII_WEIGHTS = {
     # smplh/smplx table, support_data/conf/moshpp_conf.yaml:118-125
-    "data": 400.0, "velo": 2.5, "dmpl": 1.0, "poseB": 1.6, "poseH": 1.0,
-    "annealing": 2.5,
+    "data": 400.0, "velo": 2.5, "dmpl": 1.0, "expr": 1.0, "poseB": 1.6,
+    "poseH": 1.0, "poseF": 1.0, "annealing": 2.5,
     # extra velocity weight on the hand-PCA dofs (1.0 = off)
     "velo_hands": 1.0,
 }
@@ -67,11 +69,13 @@ DEFAULT_STAGEII_WEIGHTS = {
 @dataclasses.dataclass(frozen=True)
 class StageIIOptions:
     optimize_fingers: bool = False
-    optimize_face: bool = False       # not ported: raises
+    optimize_face: bool = False       # jaw and expressions
     optimize_toes: bool = False
-    optimize_dynamics: bool = False   # DMPL extras, num_dmpls <= 16
+    optimize_dynamics: bool = False   # DMPL extras
     num_betas: int = 16
     num_dmpls: int = 8
+    num_expressions: int = 10
+    expr_start: int = 300             # SMPL-X's betas_expr_start_id
     maxiter: int = 100
     smoothing_sweeps: int = 2
     e_3_polish: float = 1e-4
@@ -123,36 +127,46 @@ class StageIIResult(NamedTuple):
     trans: torch.Tensor         # (F, 3)
     pose: torch.Tensor          # (F, P) optimization pose vector
     fullpose: torch.Tensor      # (F, 3*J) expanded axis-angles
-    extra: torch.Tensor         # (F, E) DMPL coefficients (E may be 0)
+    extra: torch.Tensor         # (F, E) DMPLs or expressions (E may be 0)
     markers_sim: torch.Tensor   # (F, M, 3)
     data_err: torch.Tensor      # (F,) mean distance over observed markers (m)
     iterations: torch.Tensor    # (F,) iterations of the final (polish) solve
     host_syncs: int             # loop-condition reads over all phases
 
 
-def _check_supported(opts: StageIIOptions) -> None:
-    if opts.optimize_face:
-        raise NotImplementedError(
-            "expressions (optimize_face) are not ported yet")
-    if opts.optimize_dynamics and opts.num_dmpls > MAX_INLINE_EXTRAS:
-        raise NotImplementedError(
-            f"num_dmpls={opts.num_dmpls} > {MAX_INLINE_EXTRAS}: wider extras "
-            "take the tiled Pallas kernels K10-K16, not ported yet")
-
-
 def _num_extra(opts: StageIIOptions) -> int:
-    return opts.num_dmpls if opts.optimize_dynamics else 0
+    if opts.optimize_dynamics:
+        return opts.num_dmpls
+    if opts.optimize_face:
+        return opts.num_expressions
+    return 0
+
+
+def _extra_start(model: SurfaceModel, opts: StageIIOptions) -> int:
+    """First shapedirs column of the extra dims: DMPLs right after the
+    betas; expressions at `expr_start`, or as far on as the model's
+    shapedirs allow."""
+    if opts.optimize_dynamics:
+        return opts.num_betas
+    return min(opts.expr_start, model.num_shape_dirs - opts.num_expressions)
 
 
 def _betas_for_lbs(prob: StageIIProblem, opts: StageIIOptions,
                    extra: torch.Tensor) -> torch.Tensor:
     """Shape coefficients seen by LBS: the subject's betas (B',) or, with
-    DMPL dims, (N, B' + E) per frame (the DMPL components occupy shapedirs
-    columns [num_betas, num_betas + num_dmpls))."""
+    E extra dims, (N, start + E) per frame: the betas, zeros, and the extras
+    in their shapedirs columns [start, start + E)."""
     base = prob.betas[:opts.num_betas]
-    if not _num_extra(opts):
+    E = _num_extra(opts)
+    if not E:
         return base
-    return torch.cat([base.expand(extra.shape[0], -1), extra], dim=1)
+    if opts.optimize_dynamics:
+        return torch.cat([base.expand(extra.shape[0], -1), extra], dim=1)
+    es = _extra_start(prob.sub_model, opts)
+    out = extra.new_zeros((extra.shape[0], es + E))
+    out[:, :base.shape[0]] = base
+    out[:, es:] = extra
+    return out
 
 
 def _problem(sub_model, local, coeffs, betas, opts) -> StageIIProblem:
@@ -161,10 +175,10 @@ def _problem(sub_model, local, coeffs, betas, opts) -> StageIIProblem:
     indices = MarkerFrameIndices(local[:, 0], local[:, 1], local[:, 2])
     coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=dev)
     betas = torch.as_tensor(betas, dtype=torch.float32, device=dev)
-    nb = opts.num_betas
+    es = _extra_start(sub_model, opts)
     tables = prepare_marker_jac_tables(
-        sub_model, indices, coeffs, betas[:nb],
-        extra_cols=range(nb, nb + _num_extra(opts)))
+        sub_model, indices, coeffs, betas[:opts.num_betas],
+        extra_cols=range(es, es + _num_extra(opts)))
     return StageIIProblem(sub_model, indices.c0, indices.c1, indices.c2,
                           coeffs, betas, tables)
 
@@ -178,19 +192,20 @@ def prepare_stageii_problem(model: SurfaceModel,
     """Freeze the stage-i outputs into a solver context on `device`.
 
     The latent markers' local frames come from the canonical shaped body;
-    the model is then gathered to the union of frame vertices. The SMPL-X
-    eyeball mask of the JAX package is not applied by default: pass
-    `exclude_vertex_mask` (V,) bool to drop vertices from the frames.
+    the model is then gathered to the union of frame vertices. Vertices in
+    `exclude_vertex_mask` (V,) bool are never frame vertices; by default the
+    SMPL-X eyeballs, as in the JAX package (none unless V = 10475).
     """
-    _check_supported(opts)
     model = model.to(device)
     betas = torch.as_tensor(np.asarray(betas, np.float32), device=device)
     lat = torch.as_tensor(np.asarray(markers_latent, np.float32), device=device)
     nb = betas.shape[-1]
     can_verts = model.v_template + torch.einsum(
         "vcb,b->vc", model.shapedirs[..., :nb], betas)
-    excl = (None if exclude_vertex_mask is None else
-            torch.as_tensor(np.asarray(exclude_vertex_mask, bool), device=device))
+    if exclude_vertex_mask is None:
+        exclude_vertex_mask = smplx_eyeball_mask(can_verts.shape[0])
+    excl = torch.as_tensor(np.asarray(exclude_vertex_mask, bool),
+                           device=device)
     idx = select_frame_indices(can_verts, lat, k=opts.knn_k, exclude_mask=excl)
     coeffs = marker_coeffs(can_verts, lat, idx)
     stacked = idx.stacked.cpu().numpy()
@@ -206,7 +221,6 @@ def problem_from_arrays(sub_model: SurfaceModel, frame_idx: np.ndarray,
     """A problem from frozen arrays, e.g. the numpy fields of a JAX
     `StageIIProblem`: the subset model, local frame indices (M, 3), marker
     coefficients (M, 3) and betas."""
-    _check_supported(opts)
     return _problem(sub_model.to(device), np.array(frame_idx),
                     np.array(coeffs, np.float32),
                     np.array(betas, np.float32), opts)
@@ -226,6 +240,7 @@ def simulate_markers(prob: StageIIProblem, opts: StageIIOptions,
 class _TermSpec(NamedTuple):
     body_rng: Optional[Tuple[int, int]]   # x-range of the prior's pose slice
     finger_rng: Optional[Tuple[int, int]]  # x-range of the hand-PCA tail
+    face_rng: Optional[Tuple[int, int]]   # x-range of the jaw
 
 
 def _term_spec(prob: StageIIProblem, opts: StageIIOptions,
@@ -243,7 +258,10 @@ def _term_spec(prob: StageIIProblem, opts: StageIIOptions,
         body_rng = (3 + int(ids[0]), 3 + int(ids[-1]) + 1)
     finger_rng = ((3 + info.body_pose_dof, 3 + P)
                   if (opts.optimize_fingers and info.has_hands) else None)
-    return _TermSpec(body_rng, finger_rng)
+    face = pose_part_ids(model_type, optimize_toes=opts.optimize_toes)["face"]
+    face_rng = ((3 + face[0], 3 + face[-1] + 1)
+                if (opts.optimize_face and face) else None)
+    return _TermSpec(body_rng, finger_rng, face_rng)
 
 
 def _velo_weight_vec(prob, opts, spec, device) -> torch.Tensor:
@@ -265,9 +283,8 @@ def make_stageii_system(prob: StageIIProblem,
 
     aux values carry a leading N: markers (N, M, 3), mask (N, M), wt_data,
     anneal, wt_pose_scale (N,), velo_anchor (N, P), velo_on (N,) and, with
-    E DMPL dims, extra_anchor (N, E), extra_on (N,).
+    DMPL dims, extra_anchor (N, E), extra_on (N,).
     """
-    _check_supported(opts)
     if prior is not None and not isinstance(prior, MaxMixturePrior):
         raise NotImplementedError("callable priors are not ported yet")
     spec = _term_spec(prob, opts, model_type)
@@ -316,9 +333,14 @@ def make_stageii_system(prob: StageIIProblem,
             s, e = spec.finger_rng
             wf = (wt("poseH") * aux["anneal"])[:, None]
             f = diag(f, s, e, x[:, s:e], wf)
-        if E:
-            # DMPL magnitude and its extrapolation anchor (JAX
-            # `_quad_smalls`)
+        if spec.face_rng is not None:
+            # jaw and expression magnitudes (JAX `_quad_smalls`)
+            s, e = spec.face_rng
+            wf = (wt("poseF") * aux["anneal"])[:, None]
+            f = diag(f, s, e, x[:, s:e], wf)
+            f = diag(f, 3 + P, D, x[:, 3 + P:], wt("expr"))
+        if opts.optimize_dynamics and E:
+            # DMPL magnitude and its extrapolation anchor
             extra = x[:, 3 + P:]
             f = diag(f, 3 + P, D, extra, wt("dmpl"))
             f = diag(f, 3 + P, D, extra - aux["extra_anchor"],
@@ -372,6 +394,10 @@ def _param_masks(model: SurfaceModel, opts: StageIIOptions, model_type: str,
     step2 = step1.copy()
     if opts.optimize_fingers and info.has_hands:
         step2[3 + info.body_pose_dof: 3 + P] = 1.0
+    if opts.optimize_face:
+        for i in parts["face"]:
+            step2[3 + i] = 1.0
+        step2[3 + P:] = 1.0
     if opts.optimize_dynamics:
         step2[3 + P:] = 1.0
     t = lambda a: torch.as_tensor(a, device=device)
@@ -417,9 +443,10 @@ def _interp_x(xa: torch.Tensor, seg_lo: torch.Tensor, seg_hi: torch.Tensor,
     return lin
 
 
-def _velo_aux(x: torch.Tensor, P: int) -> dict:
-    """Velocity extrapolation anchors 2 x_{t-1} - x_{t-2} of the pose and
-    of the extra (DMPL) dims, and their on-flags (frames >= 2)."""
+def _velo_aux(x: torch.Tensor, P: int, dynamics: bool) -> dict:
+    """Velocity extrapolation anchors 2 x_{t-1} - x_{t-2} of the pose and,
+    with DMPL `dynamics`, of the extra dims, and their on-flags (frames
+    >= 2). Expressions get no anchor, as in the JAX package."""
     F = x.shape[0]
 
     def anchor(v):
@@ -427,7 +454,7 @@ def _velo_aux(x: torch.Tensor, P: int) -> dict:
 
     on = (torch.arange(F, device=x.device) >= 2).to(torch.float32)
     out = {"velo_anchor": anchor(x[:, 3:3 + P]), "velo_on": on}
-    if x.shape[1] > 3 + P:
+    if dynamics and x.shape[1] > 3 + P:
         out.update(extra_anchor=anchor(x[:, 3 + P:]), extra_on=on)
     return out
 
@@ -483,7 +510,8 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
     maskf = torch.as_tensor(mask, device=device).to(torch.float32)
     F, M = maskf.shape
     P = model.pose_dof
-    E = _num_extra(opts)
+    # DMPL dims carry extrapolation anchors; expressions have none
+    n_anchored = _num_extra(opts) if opts.optimize_dynamics else 0
     wt = opts.wt
     system = make_stageii_system(prob, opts, prior, model_type)
 
@@ -509,8 +537,9 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
                "wt_pose_scale": torch.full((n,), scale, device=device),
                "velo_anchor": torch.zeros((n, P), device=device),
                "velo_on": z}
-        if E:
-            aux.update(extra_anchor=torch.zeros((n, E), device=device),
+        if n_anchored:
+            aux.update(extra_anchor=torch.zeros((n, n_anchored),
+                                                device=device),
                        extra_on=z)
         return aux
 
@@ -519,7 +548,7 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
     def run(x, aux, pmask, e3, dl, use_velo=False):
         nonlocal syncs
         if use_velo:
-            aux = dict(aux, **_velo_aux(x, P))
+            aux = dict(aux, **_velo_aux(x, P, opts.optimize_dynamics))
         r = batched_system_solve(system, x, aux, dl, param_mask=pmask,
                                  e_3=e3, compact_buckets=opts.compact_buckets)
         syncs += r.host_syncs

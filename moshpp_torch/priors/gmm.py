@@ -25,8 +25,9 @@ class MaxMixturePrior:
 
 
 def gmm_prior_from_arrays(means, chols, sqrt_neg_log_w,
-                          device="cpu") -> MaxMixturePrior:
-    """Prior from numpy arrays (e.g. the fields of a JAX prior)."""
+                          *, device) -> MaxMixturePrior:
+    """Prior on `device` from numpy arrays (e.g. the fields of a JAX
+    prior)."""
     t = lambda a: torch.as_tensor(np.array(a, np.float32), device=device)
     return MaxMixturePrior(t(means), t(chols), t(sqrt_neg_log_w))
 
@@ -63,9 +64,10 @@ def _from_moments(means: np.ndarray, covars: np.ndarray,
 
 
 def make_gmm_prior(dim: int, num_components: int = 8, seed: int = 0,
-                   scale: float = 0.2, device="cpu") -> MaxMixturePrior:
-    """Synthetic prior for tests/benchmarks: the same numpy draws as the JAX
-    package's `make_gmm_prior`, so the same seed gives the same prior."""
+                   scale: float = 0.2, *, device) -> MaxMixturePrior:
+    """Synthetic prior on `device` for tests and benchmarks: the same numpy
+    draws as the JAX package's `make_gmm_prior`, so the same seed gives the
+    same prior."""
     rng = np.random.default_rng(seed)
     means = rng.normal(size=(num_components, dim)) * scale * 0.5
     covars = []

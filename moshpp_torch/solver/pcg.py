@@ -19,6 +19,26 @@ from moshpp_torch.solver.gauss_newton import (DoglegOptions, _bmv, _damp,
                                               _masked_system)
 
 KERNEL = "dogleg_direction"
+# The kernel holds a frame's B and one vector in dynamic shared memory,
+# (D^2 + D) floats, beside 128 B of static scratch; an H100 block may have
+# 232,448 B, so D <= 240 (D=206, the SMPL-X face path: 170,568 B).
+SMEM_PER_BLOCK = 232_448
+SMEM_STATIC = 128
+
+
+def direction_smem_bytes(D: int) -> int:
+    """Shared memory of one direction-kernel block at width D."""
+    return (D * D + D) * 4 + SMEM_STATIC
+
+
+def check_direction_width(D: int) -> None:
+    """Raise for a D whose B does not fit one block's shared memory; on
+    every device, so that a CPU run refuses what the card would."""
+    need = direction_smem_bytes(D)
+    if need > SMEM_PER_BLOCK:
+        raise ValueError(
+            f"dogleg direction at D={D} needs {need} B of shared memory a "
+            f"block; the kernel has {SMEM_PER_BLOCK} B (D <= 240)")
 
 
 def dogleg_direction_plain(g, B, plin, mask, delta, iters: int,
@@ -34,6 +54,26 @@ def dogleg_direction_plain(g, B, plin, mask, delta, iters: int,
     p = _dogleg_geometry(gm, Bd, delta, p_gn, ok) * mask
     pred = -(2.0 * _dot(gm, p) + _dot(p, _bmv(Bd, p)))
     return p, p_gn, pred
+
+
+def plain_in_orders(g, B, plin, mask, delta, iters: int, damping: float,
+                    seeds=(1, 2)):
+    """The plain version's outputs (p, p_gn, pred) with the unknowns in the
+    given order and in one fixed random order per seed, each put back in the
+    given order: unconverged CG is chaotic in the summation order, and these
+    runs measure how far float32 alone moves the result."""
+    D = g.shape[1]
+    outs = [dogleg_direction_plain(g, B, plin, mask, delta, iters, damping)]
+    for seed in seeds:
+        perm = torch.randperm(D, generator=torch.Generator().manual_seed(
+            seed)).to(g.device)
+        inv = torch.argsort(perm)
+        p, p_gn, pred = dogleg_direction_plain(
+            g[:, perm].contiguous(), B[:, perm][:, :, perm].contiguous(),
+            plin[:, perm].contiguous(), mask[:, perm].contiguous(), delta,
+            iters, damping)
+        outs.append((p[:, inv], p_gn[:, inv], pred))
+    return outs
 
 
 def direction_test_system(n: int, d: int, cond: float, *, seed: int = 0,
@@ -85,9 +125,10 @@ def dogleg_direction_batched(g: torch.Tensor, B: torch.Tensor,
     delta (N,)) -> (p (N, D) dogleg step, p_gn (N, D) warm start for the
     next iteration, pred (N,) model reduction).
     """
+    N, D = g.shape
+    check_direction_width(D)
     if not g.is_cuda:
         return dogleg_direction_plain(g, B, plin, mask, delta, iters, damping)
-    N, D = g.shape
     for name, t, shape in (("g", g, (N, D)), ("B", B, (N, D, D)),
                            ("plin", plin, (N, D)), ("mask", mask, (N, D)),
                            ("delta", delta, (N,))):

@@ -56,7 +56,8 @@ def _tables(family, dof_per_hand, M, device, seed=0, E=0):
         model, idx, coeffs, betas, extra_cols=range(10, 10 + E)), rng
 
 
-CASES = [("smplh", 6, 7), ("smplh", 24, 46), ("smpl", 0, 5), ("mano", 6, 7)]
+CASES = [("smplh", 6, 7), ("smplh", 24, 46), ("smpl", 0, 5), ("mano", 6, 7),
+         ("smplx", 24, 46)]
 
 
 @pytest.mark.parametrize("family,dph,M", CASES)
@@ -136,8 +137,60 @@ def test_marker_rows_ext_kernel_matches_plain(dev, with_jac):
         assert jm_k is None
 
 
+@pytest.mark.parametrize("with_jac", [True, False])
+@pytest.mark.parametrize("E", [20, 80])
+def test_tiled_kernels_match_plain(dev, E, with_jac):
+    """The tiled extras route at N=128 on full-width SMPL-X hands (46
+    markers): fk_smalls<., tiled> (q included), marker_rows<., tiled> (jm's
+    first 3+P columns, uv) and, with the Jacobian, extras_tangent and
+    extras_cols, each fed its plain predecessor's outputs."""
+    model, tables, rng = _tables("smplx", 24, 46, dev, E=E)
+    assert tables.route == "tiled"
+    x = torch.as_tensor((rng.normal(size=(128, tables.dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    x[0] = 0.0
+    theta, trans, extra = mj.kernel_inputs(model, tables, x)
+    jshift, vpshift = mj.extra_shifts(tables, extra)
+    k = mj.fk_smalls_tiled(theta, jshift, tables, with_jac)
+    p = mj.fk_smalls_tiled_plain(theta, jshift, tables, with_jac)
+    torch.cuda.synchronize()
+    assert (k.q is not None) == with_jac and k.datr is None
+    for f, a, b in zip(k._fields, k, p):
+        if b is None:
+            assert a is None
+            continue
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5, msg=f)
+    sim_k, jm_k, uv_k = mj.marker_rows_tiled(p, trans, vpshift, tables,
+                                             with_jac)
+    sim_p, jm_p, uv_p = mj.marker_rows_tiled_plain(p, trans, vpshift, tables,
+                                                   with_jac)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sim_k, sim_p, rtol=0, atol=2e-5)
+    if not with_jac:
+        assert jm_k is None and uv_k is None
+        return
+    Dp = tables.dof - E
+    scale = max(float(jm_p.abs().max()), 1.0)
+    torch.testing.assert_close(jm_k[..., :Dp], jm_p[..., :Dp], rtol=0,
+                               atol=3e-4 * scale)
+    torch.testing.assert_close(uv_k, uv_p, rtol=0,
+                               atol=3e-4 * max(float(uv_p.abs().max()), 1.0))
+    datr_k = mj.extras_tangent(p.q, p.grot, tables)
+    datr_p = mj.extras_tangent_plain(p.q, p.grot, tables)
+    torch.cuda.synchronize()
+    assert datr_k.shape == (128, E, 55, 3)
+    torch.testing.assert_close(datr_k, datr_p, rtol=0, atol=2e-5)
+    jm_k = mj.extras_cols(datr_p, uv_p, tables, jm_p.clone())
+    jm_p = mj.extras_cols_plain(datr_p, uv_p, tables, jm_p.clone())
+    torch.cuda.synchronize()
+    assert float(jm_p[..., Dp:].abs().max()) > 1e-3
+    scale = max(float(jm_p.abs().max()), 1.0)
+    torch.testing.assert_close(jm_k, jm_p, rtol=0, atol=3e-4 * scale)
+
+
 @pytest.mark.parametrize("D,cond", [(17, 5.0), (17, 1e2), (117, 5.0),
-                                    (117, 1e2), (117, 1e3), (125, 1e2)])
+                                    (117, 1e2), (117, 1e3), (125, 1e2),
+                                    (206, 1e2)])
 @pytest.mark.parametrize("iters", [24, 128])
 def test_direction_kernel_matches_plain(dev, D, cond, iters):
     """Against the plain version in float64, within 4x the float32 plain
@@ -146,7 +199,7 @@ def test_direction_kernel_matches_plain(dev, D, cond, iters):
     converged, so p differs between 24 and 128 iterations; at D=17, 128
     iterations run far past convergence, through the breakdown guards. At
     D=125 (the DMPL path) B takes 62.5 KB of shared memory, past the 48 KB
-    default."""
+    default; at D=206 (the SMPL-X face path) 170.6 KB, one block an SM."""
     args = pcg.direction_test_system(128, D, cond, seed=D, device=dev)
     out_k = pcg.dogleg_direction_batched(*args, iters, 1e-8)
     out_p = pcg.dogleg_direction_plain(*args, iters, 1e-8)
@@ -179,6 +232,14 @@ def test_wrappers_count_and_check(dev):
     mj.marker_sim(model_e, tables_e, torch.zeros((3, tables_e.dof), device=dev))
     assert kernels.COUNTS.launches[mj.FK_SIM_EXT] == 1
     assert kernels.COUNTS.launches[mj.ROWS_SIM_EXT] == 1
+    model_t, tables_t, _ = _tables("smpl", 6, 5, dev, E=20)
+    mj.marker_sim_and_jacobian(model_t, tables_t,
+                               torch.zeros((3, tables_t.dof), device=dev))
+    mj.marker_sim(model_t, tables_t, torch.zeros((3, tables_t.dof), device=dev))
+    for name in (mj.FK_JAC_TILED, mj.TANGENT, mj.ROWS_JAC_TILED, mj.COLS,
+                 mj.FK_SIM_TILED, mj.ROWS_SIM_TILED):
+        assert kernels.COUNTS.launches[name] == 1, name
+    assert sum(kernels.COUNTS.plain_cuda.values()) == 0
     theta, _, _ = mj.kernel_inputs(model, tables, x)
     with pytest.raises(ValueError):
         mj.fk_smalls(theta.double(), tables, True)

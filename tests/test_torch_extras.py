@@ -85,7 +85,7 @@ def _marker_problem(mode: str, E: int, seed: int = 4):
     jm = jax_make_model("smplh", num_verts=300, seed=4, dof_per_hand=6,
                         num_shape_dirs=16)
     tm = make_synthetic_model("smplh", num_verts=300, seed=4, dof_per_hand=6,
-                              num_shape_dirs=16)
+                              num_shape_dirs=16, device="cpu")
     betas = (rng.normal(size=NB) * 0.3).astype(np.float32)
     can_v = np.asarray(jm.v_template) + np.einsum(
         "vcb,b->vc", np.asarray(jm.shapedirs)[..., :NB], betas)
@@ -199,7 +199,7 @@ def test_lbs_forward_per_frame_betas_matches_jax():
     jm = jax_make_model("smplh", num_verts=300, seed=4, dof_per_hand=6,
                         num_shape_dirs=24)
     tm = make_synthetic_model("smplh", num_verts=300, seed=4, dof_per_hand=6,
-                              num_shape_dirs=24)
+                              num_shape_dirs=24, device="cpu")
     N = 4
     pose = (rng.normal(size=(N, tm.pose_dof)) * 0.3).astype(np.float32)
     betas = (rng.normal(size=(N, 24)) * 0.5).astype(np.float32)
@@ -272,7 +272,7 @@ def port_problem(fp):
     model = surface_model_from_arrays(
         {f: np.asarray(getattr(sub, f)) for f in _MODEL_FIELDS},
         sub.model_type, sub.parents, sub.dof_per_hand,
-        num_betas=sub.num_betas, skin_k=sub.skin_k)
+        num_betas=sub.num_betas, skin_k=sub.skin_k, device="cpu")
     opts = stageii.StageIIOptions(**DMPL_OPTS)
     frame_idx = np.stack([np.asarray(c) for c in
                           (jp.frame_c0, jp.frame_c1, jp.frame_c2)], axis=1)
@@ -281,7 +281,8 @@ def port_problem(fp):
                                        device="cpu")
     prior = gmm_prior_from_arrays(np.asarray(jprior.means),
                                   np.asarray(jprior.chols),
-                                  np.asarray(jprior.sqrt_neg_log_w))
+                                  np.asarray(jprior.sqrt_neg_log_w),
+                                  device="cpu")
     return prob, opts, prior
 
 

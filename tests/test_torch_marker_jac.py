@@ -36,7 +36,7 @@ def _problem(family, num_markers, dof_per_hand=6, seed=4):
     jm = jax_make_model(family, num_verts=300, seed=4,
                         dof_per_hand=dof_per_hand)
     tm = make_synthetic_model(family, num_verts=300, seed=4,
-                              dof_per_hand=dof_per_hand)
+                              dof_per_hand=dof_per_hand, device="cpu")
     nb = min(10, jm.num_shape_dirs)
     betas = (rng.normal(size=nb) * 0.3).astype(np.float32)
     can_v = np.asarray(jm.v_template) + np.einsum(
@@ -61,7 +61,8 @@ def _check(sim, jmat, sim_r, jm_r):
 
 
 @pytest.mark.parametrize("family,num_markers", [("smplh", 7), ("smpl", 7),
-                                                ("mano", 7), ("smpl", 5)])
+                                                ("mano", 7), ("smpl", 5),
+                                                ("smplx", 7)])
 def test_sim_and_jacobian_match_pallas(family, num_markers):
     jm, jt, tm, tt, rng = _problem(family, num_markers)
     x = (rng.normal(size=(5, 3 + tm.pose_dof)) * 0.4).astype(np.float32)
@@ -85,7 +86,7 @@ def test_zero_pose_matches_pallas():
     np.testing.assert_allclose(jmat.numpy(), np.asarray(jm_r), atol=3e-4)
 
 
-@pytest.mark.parametrize("family", ["smplh", "smpl", "mano"])
+@pytest.mark.parametrize("family", ["smplh", "smpl", "mano", "smplx"])
 def test_sim_matches_pallas(family):
     jm, jt, tm, tt, rng = _problem(family, 7)
     x = (rng.normal(size=(5, 3 + tm.pose_dof)) * 0.4).astype(np.float32)
@@ -110,12 +111,12 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 def test_extra_dims_raise():
-    """x wider than the tables' extra dims is refused; more than 16 extra
-    dims take the tiled kernels, which are not ported."""
+    """x wider than the tables' extra dims is refused, and so is an extra
+    column past the model's shapedirs width."""
     _, _, tm, tt, _ = _problem("smpl", 5)
     with pytest.raises(ValueError):
         marker_sim(tm, tt, torch.zeros((2, 3 + tm.pose_dof + 4)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         prepare_marker_jac_tables(tm, MarkerFrameIndices(*tt.cf.new_zeros(
             (3, 5), dtype=torch.long)), tt.cf, torch.zeros(10),
-            extra_cols=range(17))
+            extra_cols=range(tm.num_shape_dirs - 2, tm.num_shape_dirs + 1))

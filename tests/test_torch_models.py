@@ -61,7 +61,7 @@ def test_synthetic_model_arrays_equal_jax(family):
     arrays = synthetic_model_arrays(family, num_verts=300, seed=9,
                                     **FAMILIES[family])
     tm = make_synthetic_model(family, num_verts=300, seed=9,
-                              **FAMILIES[family])
+                              **FAMILIES[family], device="cpu")
     for f in FIELDS:
         np.testing.assert_array_equal(arrays[f], np.asarray(getattr(jm, f)),
                                       err_msg=f"{family}.{f}")
@@ -78,7 +78,8 @@ def test_synthetic_model_arrays_equal_jax(family):
 def test_gmm_prior_equals_jax(args):
     dim, k, seed, scale = args
     jp = jax_make_gmm(dim=dim, num_components=k, seed=seed, scale=scale)
-    tp = make_gmm_prior(dim=dim, num_components=k, seed=seed, scale=scale)
+    tp = make_gmm_prior(dim=dim, num_components=k, seed=seed, scale=scale,
+                        device="cpu")
     for f in ("means", "chols", "sqrt_neg_log_w"):
         np.testing.assert_array_equal(getattr(tp, f).numpy(),
                                       np.asarray(getattr(jp, f)), err_msg=f)
@@ -87,7 +88,8 @@ def test_gmm_prior_equals_jax(args):
 def test_gmm_prior_residual_matches_jax():
     """Residual rows, including which component each pose selects."""
     jp = jax_make_gmm(dim=63, num_components=8, seed=1, scale=0.3)
-    tp = make_gmm_prior(dim=63, num_components=8, seed=1, scale=0.3)
+    tp = make_gmm_prior(dim=63, num_components=8, seed=1, scale=0.3,
+                        device="cpu")
     rng = np.random.default_rng(2)
     x = np.concatenate([np.asarray(jp.means),
                         rng.normal(size=(8, 63)) * 0.3]).astype(np.float32)
@@ -100,7 +102,8 @@ def test_gmm_prior_residual_matches_jax():
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_lbs_forward_matches_jax(family):
     jm = jax_make_model(family, num_verts=300, seed=9, **FAMILIES[family])
-    tm = make_synthetic_model(family, num_verts=300, seed=9, **FAMILIES[family])
+    tm = make_synthetic_model(family, num_verts=300, seed=9, **FAMILIES[family],
+                              device="cpu")
     rng = np.random.default_rng(3)
     F, P = 4, tm.pose_dof
     pose = (rng.normal(size=(F, P)) * 0.4).astype(np.float32)
@@ -192,7 +195,8 @@ def test_frame_selection_matches_jax(family):
 def test_lbs_jacobian_matches_jax(family):
     """The batched closed-form vertex and marker Jacobians."""
     jm, betas, can_v, latents = _frame_problem(family)
-    tm = make_synthetic_model(family, num_verts=300, seed=9, **FAMILIES[family])
+    tm = make_synthetic_model(family, num_verts=300, seed=9, **FAMILIES[family],
+                              device="cpu")
     idx_j = jax_select(jnp.asarray(can_v), jnp.asarray(latents))
     coeffs = np.asarray(jax_coeffs(jnp.asarray(can_v), jnp.asarray(latents),
                                    idx_j))

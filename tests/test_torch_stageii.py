@@ -42,7 +42,7 @@ def port_problem(fp):
     model = surface_model_from_arrays(
         {f: np.asarray(getattr(sub, f)) for f in _MODEL_FIELDS},
         sub.model_type, sub.parents, sub.dof_per_hand,
-        num_betas=sub.num_betas, skin_k=sub.skin_k)
+        num_betas=sub.num_betas, skin_k=sub.skin_k, device="cpu")
     opts = stageii.StageIIOptions(
         maxiter=jo.maxiter, smoothing_sweeps=jo.smoothing_sweeps,
         anchor_stride=jo.anchor_stride, optimize_fingers=jo.optimize_fingers)
@@ -53,7 +53,8 @@ def port_problem(fp):
                                        device="cpu")
     prior = gmm_prior_from_arrays(np.asarray(jprior.means),
                                   np.asarray(jprior.chols),
-                                  np.asarray(jprior.sqrt_neg_log_w))
+                                  np.asarray(jprior.sqrt_neg_log_w),
+                                  device="cpu")
     return prob, opts, prior
 
 
@@ -129,14 +130,13 @@ def test_unported_options_raise(smplh):
         stageii.mosh_stageii_solve(prob, opts, fp["obs"], fp["mask"],
                                    prior=prior, return_report=True,
                                    device="cpu")
-    # expressions, and DMPL blocks wider than the inline kernels take
-    for unported in (dict(optimize_face=True),
-                     dict(optimize_dynamics=True, num_dmpls=17)):
-        with pytest.raises(NotImplementedError):
-            stageii.problem_from_arrays(
-                prob.sub_model, np.zeros((2, 3), np.int64), np.zeros((2, 3)),
-                np.zeros(16), stageii.StageIIOptions(**unported),
-                device="cpu")
+    # sequences longer than chunk_frames (chunked solves), callable priors
+    short = stageii.StageIIOptions(chunk_frames=2)
+    with pytest.raises(NotImplementedError):
+        stageii.mosh_stageii_solve(prob, short, fp["obs"], fp["mask"],
+                                   prior=prior, device="cpu")
+    with pytest.raises(NotImplementedError):
+        stageii.make_stageii_system(prob, opts, lambda xb: xb, "smplh")
 
 
 _IMPORT_ALL = """
