@@ -36,26 +36,39 @@ Phases, each failing loudly (exception, nonzero exit, no ok line):
      included) with a PyTorch library call timed beside the two that have
      one, the direction kernel at D=206 (dogleg_direction@D206), parity at
      F=256, and the F=4096 face slice, which also reports the expressions'
-     and the jaw's RMS errors.
+     and the jaw's RMS errors;
+  2d-4d. the folded-weights path (`StageIIOptions.fold_weights`) on the
+     three problems: the folded marker rows `marker_rows<jac[,ext|,tiled],
+     fold>` against their plain versions and against the unfolded kernels
+     times w (bit for bit on the residual and the trans, pose and inline
+     columns), timed beside the unfolded kernel plus its torch weighting
+     pass (`unfolded_ms`); `pcg_direction` (the plain PCG entry point,
+     which no solve calls) on each problem's real system and on synthetic
+     ones, held to its float64 plain version; the card's folded solve at
+     F=256 against the CPU's (phase 3's, 3b's, and a folded one for the
+     face problem); the three folded slices at F=4096, with their peak
+     device memory beside the unfolded slices'.
 
 Every kernel entry carries its bound: the least time the card could take
 for the call, the larger of its bytes (each input read once, each output
 written once) over the memory rate and its operations over the float32
 and float64 rates (`bound`).
 
-The last three lines of stdout are the kernels JSON (fifteen kernel
-entries), the card's name and power limit, and {"ok": true, "device":
+The last three lines of stdout are the kernels JSON (nineteen kernel
+entries, one per Pallas kernel), the card's name and power limit, and {"ok": true, "device":
 {...}}. A fuller record goes to chiprun_out/chip_smoke.json.
 """
 
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -87,6 +100,9 @@ FLOOR_FACTOR = 1.5     # bench-problem wander limit: times the CPU's floor
 # sample is a noisy estimate (DMPL problem at F=256, seeds 7-10: 0.70, 0.90,
 # 1.44, 1.50 mm; bench problem: 1.70, 1.09, 1.14, 1.12 mm; PERF.md)
 FLOOR_SEEDS = (7, 8, 9)
+# the floor's CPU solves run side by side with the unperturbed one, each in
+# a process of its own (spawned) on this many threads
+CPU_THREADS_PER_SOLVE = 2
 PARITY_OPTS = dict(polish_solver="pcg", e_3_polish=1e-8, e_3_anneal=1e-4,
                    cg_iters=48, cg_iters_polish=256, maxiter=300)
 MAX_MEAN_ERR_MM = 1.0
@@ -134,6 +150,22 @@ TILED_KERNELS = {
     "extras_cols": ("moshpp_torch/csrc/extras_cols.cu",
                     "moshpp_tpu/ops/pallas_marker_jac.py:445"),
 }
+FOLD_KERNELS = {
+    "marker_rows<jac,fold>": ("moshpp_torch/csrc/marker_rows.cu",
+                              "moshpp_tpu/ops/pallas_marker_jac.py:1109"),
+    "marker_rows<jac,ext,fold>": ("moshpp_torch/csrc/marker_rows.cu",
+                                  "moshpp_tpu/ops/pallas_marker_jac.py:1122"),
+    "marker_rows<jac,tiled,fold>": ("moshpp_torch/csrc/marker_rows.cu",
+                                    "moshpp_tpu/ops/pallas_marker_jac.py:740"),
+}
+PCG_KERNEL = {
+    "pcg_direction": ("moshpp_torch/csrc/dogleg_direction.cu",
+                      "moshpp_tpu/solver/pallas_pcg.py:66"),
+}
+# the template flags of each kernel's mangled name, for the ptxas report
+TEMPLATE_FLAGS = {"fk_smalls": ("jac", "ext", "tiled"),
+                  "marker_rows": ("jac", "ext", "tiled", "fold"),
+                  "dogleg_direction": ("pcg",)}
 
 
 def log(*a):
@@ -606,15 +638,227 @@ def check_tiled_kernels(bp, records, phase):
     torch.cuda.empty_cache()
 
 
-def check_direction(bp, records, suffix=""):
-    """The direction kernel against its plain version at the problem's D:
-    on B from the real assembly at the rigid init and on synthetic systems
-    of the same shape. Records its entries under `dogleg_direction<suffix>`
-    ("" on the E=0 path, "@D125" on the DMPL path, "@D206" on the face
-    path)."""
+def check_fold_kernels(bp, records, x0, aux, phase):
+    """The folded marker rows of the problem's route at its shapes, on the
+    observations and the data weights of its rigid-init system (a few
+    markers' w set to 0): against their plain versions, and against the
+    unfolded kernel times w, which they must equal bit for bit on the
+    weighted residual and on the trans, pose and inline columns (each
+    multiply comes last in both); the tiled route's extra columns, summed
+    from weighted chain factors, within TOL_JM. Timed beside the unfolded
+    kernel plus the torch weighting pass of the unfolded system
+    (`unfolded_ms`, the same function in two steps)."""
+    import torch
+    from moshpp_torch.ops import marker_jac as mj
+
+    model, tables = bp["prob"].sub_model, bp["prob"].tables
+    route = tables.route
+    name = mj._names(True, route, True)[1]
+    theta, trans, extra = mj.kernel_inputs(model, tables, x0)
+    F, M, D, E = (theta.shape[0], tables.num_markers, tables.dof,
+                  tables.n_extra)
+    Dp = D - E if route == "tiled" else D     # columns the kernel writes
+    obs = aux["markers"].contiguous()
+    w = (aux["mask"] * aux["wt_data"][:, None]).contiguous()
+    w[::97, 3] = 0.0
+    w[5, :4] = 0.0
+    wmax = float(w.max())
+    weigh = lambda sim, jm: ((sim - obs) * w[..., None],
+                             jm * w[..., None, None])
+    log(f"phase {phase}: {name}, F={F}, M={M}, D={D}, w max {wmax:.1f}, "
+        f"{int((w == 0).sum())} zero weights")
+    if route == "tiled":
+        jshift, vpshift = mj.extra_shifts(tables, extra)
+        sm = mj.fk_smalls_tiled(theta, jshift, tables, True)
+        kernel = lambda: mj.marker_rows_tiled_fold(sm, trans, vpshift, tables,
+                                                   obs, w)
+        plain = lambda: mj.marker_rows_tiled_fold_plain(sm, trans, vpshift,
+                                                        tables, obs, w)
+        unfolded_rows = lambda: mj.marker_rows_tiled(sm, trans, vpshift,
+                                                     tables, True)
+        read = (*sm[:6], trans, vpshift)
+    else:
+        sm = mj.fk_smalls(theta, tables, True, extra)
+        kernel = lambda: mj.marker_rows_fold(sm, trans, tables, obs, w, extra)
+        plain = lambda: mj.marker_rows_fold_plain(sm, trans, tables, obs, w,
+                                                  extra)
+        unfolded_rows = lambda: mj.marker_rows(sm, trans, tables, True, extra)
+        read = (*sm[:6], sm.datr, trans, extra,
+                tables.dv if extra is not None else None)
+    out_k, out_p, out_u = kernel(), plain(), unfolded_rows()
+    rw_u, jw_u = weigh(*out_u[:2])
+    torch.cuda.synchronize()
+    rw_k, jw_k = out_k[:2]
+    assert torch.isfinite(rw_k).all() and torch.isfinite(jw_k[..., :Dp]).all()
+    e_rw = max_err(rw_k, out_p[0])
+    e_jw = max_err(jw_k[..., :Dp], out_p[1][..., :Dp])
+    scale = max(float(out_p[1].abs().max()), 1.0)
+    d_rw = max_err(rw_k, rw_u)
+    d_jw = max_err(jw_k[..., :Dp], jw_u[..., :Dp])
+    zero_jw = float(jw_k[..., :Dp][w == 0].abs().max())
+    zero_rw = float(rw_k[w == 0].abs().max())
+    line = (f"  {name}: vs plain rw err {e_rw:.3g} (limit {TOL_SIM * wmax:.3g}),"
+            f" jw[..., :{Dp}] err {e_jw:.3g} (scale {scale:.3g}); vs the "
+            f"unfolded kernel times w: rw {d_rw:.3g}, jw[..., :{Dp}] {d_jw:.3g}"
+            f" (bit for bit: 0 required); zero-weight rows max "
+            f"{max(zero_jw, zero_rw):.3g}")
+    rec = dict(max_abs_err=max(e_rw, e_jw), vs_unfolded_rw=d_rw,
+               vs_unfolded_jw=d_jw)
+    if route == "tiled":
+        uv_k, uv_p, uv_u = out_k[2], out_p[2], out_u[2]
+        e_uv = max_err(uv_k, uv_p)
+        d_uv = max_err(uv_k, uv_u * w[..., None])
+        line += f"; uv vs plain {e_uv:.3g}, vs unfolded uv w {d_uv:.3g}"
+        assert e_uv <= TOL_JM * max(float(uv_p.abs().max()), 1.0), (name, e_uv)
+        rec.update(uv_err=e_uv, vs_unfolded_uv=d_uv)
+    log(line)
+    assert e_rw <= TOL_SIM * wmax and e_jw <= TOL_JM * scale, (name, rec)
+    assert d_rw == 0.0 and d_jw == 0.0, (name, "not bit for bit", rec)
+    assert zero_jw == 0.0 and zero_rw == 0.0, name
+    del out_p, out_u, rw_u, jw_u
+    if route == "tiled":
+        # the whole folded route: the extra columns come from weighted uv
+        rw_r, jw_r = mj.marker_resid_and_wjac(model, tables, x0, obs, w)
+        rw_u, jw_u = weigh(*mj.marker_sim_and_jacobian(model, tables, x0))
+        torch.cuda.synchronize()
+        scale = max(float(jw_u.abs().max()), 1.0)
+        e_cols = max_err(jw_r[..., Dp:], jw_u[..., Dp:])
+        log(f"  folded tiled route: rw vs unfolded route {max_err(rw_r, rw_u):.3g}"
+            f", jw[..., :{Dp}] {max_err(jw_r[..., :Dp], jw_u[..., :Dp]):.3g}, "
+            f"extra columns {e_cols:.3g} (scale {scale:.3g})")
+        assert torch.equal(rw_r, rw_u)
+        assert torch.equal(jw_r[..., :Dp], jw_u[..., :Dp])
+        assert e_cols <= TOL_JM * scale, e_cols
+        rec["route_extra_cols_err"] = e_cols
+        del rw_r, jw_r, rw_u, jw_u
+    torch.cuda.empty_cache()
+    f32, f64 = rows_flops(tables, F, True, route)
+    written = (rw_k, jw_k[..., :Dp], out_k[2] if route == "tiled" else None)
+    records[name] = dict(
+        **rec, **timed(kernel, plain, n_plain=2),
+        unfolded_ms=cuda_ms(lambda: weigh(*unfolded_rows()[:2])),
+        unfolded_ms_device=cuda_ms(lambda: weigh(*unfolded_rows()[:2]),
+                                   hold=True),
+        library_ms=None,
+        **bound((*read, *rows_tables(tables, True), obs, w), written,
+                f32 + F * M * (3 * Dp + 9), f64))
+    r = records[name]
+    log(f"  {name}: {r['ms_device']:.4f} ms device ({r['ms']:.4f} host-"
+        f"inclusive), unfolded kernel + weighting {r['unfolded_ms_device']:.4f}"
+        f" ms device ({r['unfolded_ms']:.4f}), plain {r['plain_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    del out_k, rw_k, jw_k, written
+    torch.cuda.empty_cache()
+
+
+def check_pcg(bp, records, g, B, pmask, phase):
+    """`pcg_direction` at the problem's D against its plain version, at the
+    solve's 24 and the polish's 128 iterations: on the real system at the
+    rigid init, masked and damped as the solver would hand it over, and on
+    `direction_test_system` cases at Jacobi-scaled condition ~5, ~1e2 and
+    ~1e3. Each is held to the plain version in float64 within
+    TOL_DIR_VS_F64 times the float32 plain version's largest distance over
+    the given order and PERM_SEEDS permutations (the direction kernel's
+    gate); at ~5 also elementwise to the float32 plain version; the ok
+    flags must equal the float64 version's wherever its g.p_gn is clearly
+    negative. Returns the launches of its entry point `pcg_direction_batched`
+    once per iteration count on the real system, counted alone."""
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.solver import gauss_newton as gn
+    from moshpp_torch.solver import pcg
+
+    opts = bp["opts"]
+    F, D = g.shape
+    Bd = gn._damp(gn._masked_system(g, B, pmask)[1],
+                  gn.DoglegOptions()).contiguous()
+    plin = torch.zeros_like(g)
+    iters_list = (opts.cg_iters, opts.cg_iters_polish)
+    kernels.COUNTS.reset()
+    for iters in iters_list:                  # the entry point, counted
+        pcg.pcg_direction_batched(g, Bd, plin, iters)
+    torch.cuda.synchronize()
+    launches = kernels.COUNTS.launches[pcg.PCG_KERNEL]
+    log(f"phase {phase}: pcg_direction@D{D}, F={F}: {launches} launches of "
+        f"pcg_direction_batched on the real system (no solve calls it)")
+
+    def gate(tag, args, iters, elementwise):
+        p_k, ok_k = pcg.pcg_direction_batched(*args, iters)
+        orders = pcg.pcg_plain_in_orders(*args, iters, PERM_SEEDS)
+        p_64, ok_64 = pcg.pcg_direction_plain(*(t.double() for t in args),
+                                              iters)
+        torch.cuda.synchronize()
+        e_k = max_err(p_k.double(), p_64)
+        e_orders = [max_err(o[0].double(), p_64) for o in orders]
+        g64 = args[0].double()
+        gp = (g64 * p_64).sum(-1)
+        clear = gp < -1e-3 * (torch.linalg.vector_norm(g64, dim=-1)
+                              * torch.linalg.vector_norm(p_64, dim=-1))
+        ok_bad = int((ok_k[clear] != ok_64[clear]).sum())
+        line = (f"  pcg_direction@D{D} {tag}: |kernel-f64| {e_k:.3g}, |plain "
+                f"f32-f64| {', '.join(f'{e:.3g}' for e in e_orders)} (given "
+                f"order, then permuted), |f64| max "
+                f"{float(p_64.abs().max()):.3g}; ok {int(ok_k.sum())} of {F} "
+                f"(f64 {int(ok_64.sum())}), {int(clear.sum())} clear descents,"
+                f" {ok_bad} ok flags differ there")
+        if elementwise:
+            p32, ok32 = orders[0]
+            bad = int(((p_k - p32).abs() > TOL_DIR_ATOL
+                       + TOL_DIR_RTOL * p32.abs()).sum())
+            line += f"; vs plain f32 {bad} of {p_k.numel()} outside"
+            assert bad == 0 and torch.equal(ok_k, ok32), ("pcg", D, tag)
+        log(line)
+        assert torch.isfinite(p_k).all(), ("pcg", D, tag)
+        assert e_k <= TOL_DIR_VS_F64 * max(e_orders) + 1e-6 * float(
+            p_64.abs().max()), ("pcg", D, tag)
+        assert ok_bad == 0, ("pcg", D, tag, "ok")
+        return e_k
+
+    errs = []
+    for cond in (5.0, 1e2, 1e3):
+        g_t, B_t, plin_t, mask_t, _ = pcg.direction_test_system(
+            F, D, cond, seed=1, device=g.device)
+        gm, Bm = gn._masked_system(g_t, B_t, mask_t)
+        args = (gm.contiguous(),
+                gn._damp(Bm, gn.DoglegOptions(damping=1e-8)).contiguous(),
+                (plin_t * mask_t).contiguous())
+        del g_t, B_t, Bm
+        for iters in iters_list:
+            errs.append(gate(f"cond ~{cond:g} iters={iters}", args, iters,
+                             cond == 5.0))
+        del args
+        torch.cuda.empty_cache()
+    for iters in iters_list:
+        errs.append(gate(f"iters={iters} (real B)", (g, Bd, plin), iters,
+                         False))
+        out = pcg.pcg_direction_batched(g, Bd, plin, iters)
+        # per frame: iters + 1 matvecs of 2 D^2, ~10 D more an iteration
+        records[f"pcg_direction@D{D}@{iters}"] = dict(
+            **timed(lambda: pcg.pcg_direction_batched(g, Bd, plin, iters),
+                    lambda: pcg.pcg_direction_plain(g, Bd, plin, iters),
+                    n_plain=2),
+            library_ms=None,
+            **bound((g, Bd, plin), out,
+                    F * ((iters + 1) * 2 * D * D + iters * 10 * D)))
+        r = records[f"pcg_direction@D{D}@{iters}"]
+        log(f"  pcg_direction@D{D}@{iters}: {r['ms_device']:.4f} ms device "
+            f"({r['ms']:.4f} host-inclusive), plain {r['plain_ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    records[f"pcg_direction@D{D}"] = dict(
+        max_abs_err=max(errs), launches=launches,
+        **records[f"pcg_direction@D{D}@{opts.cg_iters}"])
+    del Bd
+    torch.cuda.empty_cache()
+    return launches
+
+
+def rigid_init_system(bp):
+    """The problem's first system as the solver assembles it: x0 at the
+    rigid init, its aux (the data weights of the observed markers, the
+    anchor pass's prior scale 10), the masked gradient g, the raw B and the
+    step-2 parameter mask, all (F, ..)."""
     import torch
     from moshpp_torch.pipeline import stageii
-    from moshpp_torch.solver import gauss_newton, pcg
 
     prob, opts = bp["prob"], bp["opts"]
     F = bp["obs"].shape[0]
@@ -634,11 +878,25 @@ def check_direction(bp, records, suffix=""):
         aux.update(extra_anchor=torch.zeros_like(x0[:, 3 + P:]),
                    extra_on=torch.zeros(F, device=x0.device))
     _, g, B = system.system_fn(x0, aux)
-    D = g.shape[1]
     _, step2 = stageii._param_masks(prob.sub_model, opts, bp["model_type"],
                                     x0.device)
     pmask = step2.expand_as(g).contiguous()
-    g = (g * pmask).contiguous()
+    return x0, aux, (g * pmask).contiguous(), B, pmask
+
+
+def check_direction(bp, records, suffix=""):
+    """The direction kernel against its plain version at the problem's D:
+    on B from the real assembly at the rigid init and on synthetic systems
+    of the same shape. Records its entries under `dogleg_direction<suffix>`
+    ("" on the E=0 path, "@D125" on the DMPL path, "@D206" on the face
+    path)."""
+    import torch
+    from moshpp_torch.solver import gauss_newton, pcg
+
+    opts = bp["opts"]
+    F = bp["obs"].shape[0]
+    _, _, g, B, pmask = rigid_init_system(bp)
+    D = g.shape[1]
     plin = torch.zeros_like(g)
     delta = torch.full((F,), 0.5, device=g.device)
     log(f"  dogleg_direction{suffix}: F={F}, D={D}, B takes {D * D * 4} B "
@@ -750,12 +1008,16 @@ def check_direction(bp, records, suffix=""):
         **records[f"dogleg_direction{suffix}@{opts.cg_iters}"])
 
 
-def solve_both(bp, opts, floor: bool):
-    """Solve one problem on the CPU (plain versions) and on the card
-    (kernels); the mean marker errors and the largest difference of any
-    fitted marker coordinate (wander), in mm. With `floor`, also the largest
-    wander between the CPU solve and CPU solves whose observations differ by
-    1e-7 m (FLOOR_SEEDS): the solve's own sensitivity to rounding."""
+def cpu_solve(bp, opts, obs=None):
+    """The CPU solve (plain versions) of a problem built on the CPU."""
+    from moshpp_torch.pipeline import stageii
+    return stageii.mosh_stageii_solve(
+        bp["prob"], opts, bp["obs"] if obs is None else obs, bp["mask"],
+        prior=bp["prior"], model_type=bp["model_type"], device="cpu")
+
+
+def card_solve(bp, opts):
+    """The card's solve (kernels) of a problem built on the CPU."""
     import torch
     from moshpp_torch.pipeline import stageii
 
@@ -766,39 +1028,83 @@ def solve_both(bp, opts, floor: bool):
     prior_g = dataclasses.replace(
         bp["prior"], **{f.name: getattr(bp["prior"], f.name).cuda()
                         for f in dataclasses.fields(bp["prior"])})
-
-    def cpu_solve(obs):
-        return stageii.mosh_stageii_solve(prob_c, opts, obs, bp["mask"],
-                                          prior=bp["prior"],
-                                          model_type=bp["model_type"],
-                                          device="cpu")
-
-    t0 = time.perf_counter()
-    res_c = cpu_solve(bp["obs"])
-    t_cpu = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res_g = stageii.mosh_stageii_solve(prob_g, opts, bp["obs"].cuda(),
-                                       bp["mask"].cuda(), prior=prior_g,
-                                       model_type=bp["model_type"],
-                                       device="cuda")
+    res = stageii.mosh_stageii_solve(prob_g, opts, bp["obs"].cuda(),
+                                     bp["mask"].cuda(), prior=prior_g,
+                                     model_type=bp["model_type"],
+                                     device="cuda")
     torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
-    wander = lambda a, b: float((a.cpu() - b.cpu()).abs().max()) * 1e3
+    return res
+
+
+def wander_mm(a, b) -> float:
+    """The largest difference of any fitted marker coordinate, in mm."""
+    return float((a.markers_sim.cpu() - b.markers_sim.cpu()).abs().max()) * 1e3
+
+
+def compare_solves(res_c, res_g, t_cpu, t_gpu) -> dict:
+    """The mean marker errors of a CPU and a card solve and their wander."""
     out = dict(err_cpu_mm=float(res_c.data_err.mean()) * 1e3,
                err_card_mm=float(res_g.data_err.mean()) * 1e3,
-               max_wander_mm=wander(res_g.markers_sim, res_c.markers_sim),
-               cpu_s=t_cpu, card_s=t_gpu)
-    if floor:
-        floors = []
-        for seed in FLOOR_SEEDS:
-            gen = torch.Generator().manual_seed(seed)
-            noise = 1e-7 * torch.randn(bp["obs"].shape, generator=gen)
-            res_n = cpu_solve(bp["obs"] + noise)
-            floors.append(wander(res_n.markers_sim, res_c.markers_sim))
-        out["cpu_floor_wanders_mm"] = floors
-        out["cpu_floor_wander_mm"] = max(floors)
+               max_wander_mm=wander_mm(res_g, res_c), cpu_s=t_cpu,
+               card_s=t_gpu)
     assert np.isfinite(out["err_cpu_mm"]) and np.isfinite(out["err_card_mm"])
     return out
+
+
+def perturbed_markers(make, frames: int, opts, seed: int) -> np.ndarray:
+    """The fitted markers of the CPU solve of `make(frames, "cpu")` whose
+    observations are moved by 1e-7 m of noise drawn from `seed`; runs in a
+    worker process, which builds the problem from its seeds itself (sending
+    the parent's tensors would move their storage into shared memory while
+    the parent solves on them)."""
+    import torch
+    torch.set_num_threads(CPU_THREADS_PER_SOLVE)
+    bp = make(frames, "cpu")
+    noise = 1e-7 * torch.randn(bp["obs"].shape,
+                               generator=torch.Generator().manual_seed(seed))
+    return cpu_solve(bp, opts, bp["obs"] + noise).markers_sim.numpy()
+
+
+def solve_both(bp, opts, floor_of=None):
+    """Solve one problem on the CPU (plain versions) and on the card
+    (kernels); the mean marker errors and the largest difference of any
+    fitted marker coordinate (wander), in mm, and the CPU solve. With
+    `floor`, also the largest wander between the CPU solve and CPU solves
+    whose observations differ by 1e-7 m (FLOOR_SEEDS): the solve's own
+    sensitivity to rounding. Those run in worker processes while this one
+    solves, every CPU solve on CPU_THREADS_PER_SOLVE threads; `floor_of` is
+    (make, frames), which built `bp`."""
+    import torch
+
+    if floor_of is None:
+        t0 = time.perf_counter()
+        res_c = cpu_solve(bp, opts)
+        t_cpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_g = card_solve(bp, opts)
+        return compare_solves(res_c, res_g, t_cpu,
+                              time.perf_counter() - t0), res_c
+    threads = torch.get_num_threads()
+    with ProcessPoolExecutor(len(FLOOR_SEEDS), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        pending = [pool.submit(perturbed_markers, *floor_of, opts, s)
+                   for s in FLOOR_SEEDS]
+        torch.set_num_threads(CPU_THREADS_PER_SOLVE)
+        try:
+            t0 = time.perf_counter()
+            res_c = cpu_solve(bp, opts)
+            t_cpu = time.perf_counter() - t0
+        finally:
+            torch.set_num_threads(threads)
+        t0 = time.perf_counter()
+        res_g = card_solve(bp, opts)
+        out = compare_solves(res_c, res_g, t_cpu, time.perf_counter() - t0)
+        sims = [p.result(timeout=1200) for p in pending]
+    floors = [float(np.abs(sim - res_c.markers_sim.numpy()).max()) * 1e3
+              for sim in sims]
+    out["cpu_floor_wanders_mm"] = floors
+    out["cpu_floor_wander_mm"] = max(floors)
+    return out, res_c
 
 
 def phase_parity(report, phase, problems):
@@ -815,12 +1121,16 @@ def phase_parity(report, phase, problems):
     0.6 mm and FLOOR_FACTOR times the CPU's own floor measured in the same
     run (the largest wander between the CPU solve and CPU solves 1e-7 m
     apart in the observations, one per FLOOR_SEEDS). Problems with a floor
-    polish through PCG on both sides."""
+    polish through PCG on both sides. Returns, per problem with a floor,
+    what phase 3d reuses: the problem, its options, the CPU solve and the
+    floor."""
+    kept = {}
     for name, make, frames, floor_gate in problems:
         bp = make(frames, "cpu")
         polish = dict(polish_solver="pcg") if floor_gate else {}
-        r = solve_both(bp, dataclasses.replace(bp["opts"], **polish),
-                       floor=floor_gate)
+        opts = dataclasses.replace(bp["opts"], **polish)
+        r, res_c = solve_both(bp, opts,
+                              (make, frames) if floor_gate else None)
         r["wander_limit_mm"] = PARITY_WANDER_MM
         floor = ""
         if floor_gate:
@@ -834,6 +1144,42 @@ def phase_parity(report, phase, problems):
             f"{r['wander_limit_mm']:.4f} mm (cpu {r['cpu_s']:.1f} s, card "
             f"{r['card_s']:.1f} s incl. first calls)")
         report[f"parity: {name}"] = dict(frames=frames, **r)
+        assert abs(r["err_cpu_mm"] - r["err_card_mm"]) <= PARITY_MEAN_MM, r
+        assert r["max_wander_mm"] <= r["wander_limit_mm"], r
+        if floor_gate:
+            kept[name] = dict(bp=bp, opts=opts, res_cpu=res_c,
+                              floor_mm=r["cpu_floor_wander_mm"])
+    return kept
+
+
+def phase_fold_parity(report, phase, kept):
+    """Phase 3d: the card's folded solve (`fold_weights`) of the bench, DMPL
+    and face problems at F=256 against the CPU's, with phase 3's bars and
+    the floors phases 3, 3b and 3c measured. At E=0 and inline the CPU's
+    folded solve is its unfolded one bit for bit (the plain fold computes
+    the system's own weighting; tests/test_torch_fold.py), so those phases'
+    CPU solves serve; the face problem's tiled extra columns round
+    differently folded, so it gets a CPU folded solve of its own."""
+    for name, k in kept.items():
+        bp, opts = k["bp"], dataclasses.replace(k["opts"], fold_weights=True)
+        t_cpu, res_c = 0.0, k["res_cpu"]
+        if bp["prob"].tables.route == "tiled":
+            t0 = time.perf_counter()
+            res_c = cpu_solve(bp, opts)
+            t_cpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_g = card_solve(bp, opts)
+        r = compare_solves(res_c, res_g, t_cpu, time.perf_counter() - t0)
+        r["cpu_floor_wander_mm"] = k["floor_mm"]
+        r["wander_limit_mm"] = max(PARITY_WANDER_MM,
+                                   FLOOR_FACTOR * k["floor_mm"])
+        frames = bp["obs"].shape[0]
+        log(f"phase {phase}: {name} folded, F={frames}: mean marker err cpu "
+            f"{r['err_cpu_mm']:.4f} mm ({'own folded solve, ' if t_cpu else ''}"
+            f"{t_cpu:.1f} s), card {r['err_card_mm']:.4f} mm, max wander "
+            f"{r['max_wander_mm']:.4f} mm, floor {k['floor_mm']:.4f} mm, "
+            f"limit {r['wander_limit_mm']:.4f} mm (card {r['card_s']:.1f} s)")
+        report[f"parity folded: {name}"] = dict(frames=frames, **r)
         assert abs(r["err_cpu_mm"] - r["err_card_mm"]) <= PARITY_MEAN_MM, r
         assert r["max_wander_mm"] <= r["wander_limit_mm"], r
 
@@ -861,10 +1207,14 @@ def phase_slice(bp, report, phase, names):
     times = []
     for i in range(TIMED_SOLVES):
         if i == TIMED_SOLVES - 1:
-            kernels.COUNTS.reset()     # counts of exactly one main-path solve
+            # counts and peak memory of exactly one main-path solve
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.COUNTS.reset()
         t0 = time.perf_counter()
         res = solve()
         times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(kernels.COUNTS.launches)
     plain_cuda = dict(kernels.COUNTS.plain_cuda)
     dt = statistics.median(times)
@@ -892,7 +1242,9 @@ def phase_slice(bp, report, phase, names):
     out = dict(frames=FRAMES, solve_s=times, median_s=dt, frames_per_s=fps,
                mean_marker_err_mm=err_mm, v2v_body_mm=v2v_body,
                v2v_hands_mm=v2v_hands, host_syncs=res.host_syncs,
-               launches=launches, plain_cuda=plain_cuda)
+               peak_mem_gib=peak / 2**30, start_mem_gib=base / 2**30,
+               launches=launches, plain_cuda=plain_cuda,
+               fold_weights=opts.fold_weights)
     rms = lambda a, b: float(torch.sqrt(torch.mean((a - b) ** 2)))
     dmpl = ""
     if E and opts.optimize_dynamics:
@@ -908,7 +1260,9 @@ def phase_slice(bp, report, phase, names):
     log(f"phase {phase}: F={FRAMES} solve {dt:.3f} s median of "
         f"{[round(t, 3) for t in times]} -> {fps:.1f} frames/s; mean marker "
         f"err {err_mm:.4f} mm; v2v body {v2v_body:.4f} mm, hands "
-        f"{v2v_hands:.4f} mm{dmpl}; host syncs per solve {res.host_syncs}")
+        f"{v2v_hands:.4f} mm{dmpl}; host syncs per solve {res.host_syncs}; "
+        f"peak device memory {peak / 2**30:.4f} GiB ({base / 2**30:.4f} GiB "
+        f"allocated as it began)")
     log(f"  launches in one solve: {launches}; plain versions on CUDA: "
         f"{plain_cuda}")
     report[f"slice {phase}"] = out
@@ -948,11 +1302,12 @@ def main():
         f"{os.path.relpath(info.path, REPO)}")
     for line in info.log.splitlines():
         m = re.search(r"(fk_smalls|marker_rows|dogleg_direction|extras_tangent"
-                      r"|extras_cols)_kernel(?:ILb(\d)ELb(\d)ELb(\d)E)?", line)
+                      r"|extras_cols)_kernel(?:I((?:Lb\dE)+)E)?", line)
         if "Compiling entry" in line and m:  # from the mangled name
-            log(f"  {m.group(1)}" + (
-                f"<jac={m.group(2)}, ext={m.group(3)}, tiled={m.group(4)}>"
-                if m.group(2) else ""))
+            flags = zip(TEMPLATE_FLAGS.get(m.group(1), ()),
+                        re.findall(r"Lb(\d)E", m.group(2) or ""))
+            args = ", ".join(f"{k}={v}" for k, v in flags)
+            log(f"  {m.group(1)}" + (f"<{args}>" if args else ""))
         elif "registers" in line or "spill" in line:
             log("    " + line.strip())
 
@@ -967,7 +1322,7 @@ def main():
     check_marker_kernels(bp, records, "2")
     check_direction(bp, records)
     torch.cuda.empty_cache()
-    phase_parity(report, "3", (
+    kept = phase_parity(report, "3", (
         ("reference parity problem", parity_problem, 64, False),
         ("bench problem", bench_problem, PARITY_FRAMES, True)))
     launches = phase_slice(bp, report, "4", TPU_KERNELS)
@@ -983,8 +1338,8 @@ def main():
     check_marker_kernels(dp, records, "2b")
     check_direction(dp, records, "@D125")
     torch.cuda.empty_cache()
-    phase_parity(report, "3b", (
-        ("DMPL problem", dmpl_problem, PARITY_FRAMES, True),))
+    kept.update(phase_parity(report, "3b", (
+        ("DMPL problem", dmpl_problem, PARITY_FRAMES, True),)))
     launches_ext = phase_slice(dp, report, "4b",
                                [*EXT_KERNELS, "dogleg_direction"])
     del dp
@@ -999,14 +1354,57 @@ def main():
     check_tiled_kernels(fp, records, "2c")
     check_direction(fp, records, "@D206")
     torch.cuda.empty_cache()
-    phase_parity(report, "3c", (
-        ("face problem", face_problem, PARITY_FRAMES, True),))
+    kept.update(phase_parity(report, "3c", (
+        ("face problem", face_problem, PARITY_FRAMES, True),)))
     launches_face = phase_slice(fp, report, "4c",
                                 [*TILED_KERNELS, "dogleg_direction"])
 
+    # ---- the folded-weights path: phases 2d-4d -------------------------------
+    # per problem (the face problem of phase 4c first, while it is built):
+    # the folded kernel and pcg_direction at its shapes, then its folded slice
+    from moshpp_torch.ops import marker_jac as mj
+    launches_fold, pcg_launches = {}, 0
+    for label, make in (("face", None), ("bench", bench_problem),
+                        ("DMPL", dmpl_problem)):
+        p = fp if make is None else make(FRAMES, "cuda")
+        fp = None
+        route = p["prob"].tables.route
+        x0, aux, g, B, pmask = rigid_init_system(p)
+        check_fold_kernels(p, records, x0, aux, f"2d ({label})")
+        pcg_launches += check_pcg(p, records, g, B, pmask, f"2d ({label})")
+        del x0, aux, g, B, pmask
+        torch.cuda.empty_cache()
+        (fk_jac, rows), (fk_sim, rows_sim) = (mj._names(True, route),
+                                              mj._names(False, route))
+        fold = mj._names(True, route, True)[1]
+        extra_kernels = [mj.TANGENT, mj.COLS] if route == "tiled" else []
+        counts = phase_slice(
+            dict(p, opts=dataclasses.replace(p["opts"], fold_weights=True)),
+            report, f"4d ({label})",
+            [fk_jac, fold, fk_sim, rows_sim, *extra_kernels,
+             "dogleg_direction"])
+        unfolded = report[f"slice {dict(face='4c', bench='4', DMPL='4b')[label]}"]
+        folded = report[f"slice 4d ({label})"]
+        log(f"phase 4d ({label}): {fold} {counts[fold]} launches, {fk_jac} "
+            f"{counts[fk_jac]}, {rows} {counts.get(rows, 0)}; frames/s "
+            f"{folded['frames_per_s']:.1f} folded against "
+            f"{unfolded['frames_per_s']:.1f} unfolded; peak device memory "
+            f"{folded['peak_mem_gib']:.4f} GiB folded against "
+            f"{unfolded['peak_mem_gib']:.4f} GiB unfolded (started at "
+            f"{folded['start_mem_gib']:.4f} / {unfolded['start_mem_gib']:.4f})")
+        assert counts[fold] == counts[fk_jac], (fold, counts)
+        assert counts.get(rows, 0) == 0, (rows, counts)
+        launches_fold[fold] = counts[fold]
+        del p
+        torch.cuda.empty_cache()
+    phase_fold_parity(report, "3d", kept)
+
     kern = []
+    records["pcg_direction"] = records["pcg_direction@D117"]
     for table, counts in ((TPU_KERNELS, launches), (EXT_KERNELS, launches_ext),
-                          (TILED_KERNELS, launches_face)):
+                          (TILED_KERNELS, launches_face),
+                          (FOLD_KERNELS, launches_fold),
+                          (PCG_KERNEL, {"pcg_direction": pcg_launches})):
         for name, (src, tpu) in table.items():
             r = records[name]
             kern.append({"name": name, "route": "cuda", "source": src,
@@ -1016,6 +1414,13 @@ def main():
                          "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                          "library_ms": r.get("library_ms")})
+            if "unfolded_ms" in r:
+                kern[-1]["unfolded_ms"] = r["unfolded_ms"]
+                kern[-1]["unfolded_ms_device"] = r["unfolded_ms_device"]
+    kern[-1]["note"] = ("no solve calls it: launches are its entry point's, "
+                        "pcg_direction_batched, on the three problems' "
+                        "rigid-init systems at 24 and 128 iterations (phase "
+                        "2d); times at D=117, 24 iterations")
     report["kernels"] = kern
     report["timings"] = records
     out_dir = os.path.join(REPO, "chiprun_out")

@@ -1,13 +1,17 @@
-// marker_rows<WITH_JAC, EXT, TILED>: simulated markers and, with the
+// marker_rows<WITH_JAC, EXT, TILED, FOLD>: simulated markers and, with the
 // Jacobian, their exact (trans, pose, extras) Jacobian rows.
 //
 // Replaces the Pallas TPU kernels of moshpp_tpu/ops/pallas_marker_jac.py
 // (bodies `_marker_impl` and `_sim_marker_impl`):
-//   <true, false, false>  `_marker_kernel`        <false, ...>  `_sim_marker_kernel`
-//   <true, true, false>   `_marker_kernel_ext`    <false, ...>  `_sim_marker_kernel_ext`
-//   <true, false, true>   `_marker_kernel_tiled`  <false, ...>  `_sim_marker_kernel_tiled`
-// Plain versions: moshpp_torch/ops/marker_jac.marker_rows_plain and
-// marker_rows_tiled_plain.
+//   <true, false, false, false>  `_marker_kernel`        <false, ...>  `_sim_marker_kernel`
+//   <true, true, false, false>   `_marker_kernel_ext`    <false, ...>  `_sim_marker_kernel_ext`
+//   <true, false, true, false>   `_marker_kernel_tiled`  <false, ...>  `_sim_marker_kernel_tiled`
+//   <true, false, false, true>   `_marker_jac_w_kernel`
+//   <true, true, false, true>    `_marker_jac_w_kernel_ext`
+//   <true, false, true, true>    `_marker_jac_w_kernel_tiled`
+// Plain versions: moshpp_torch/ops/marker_jac.marker_rows_plain,
+// marker_rows_tiled_plain, marker_rows_fold_plain and
+// marker_rows_tiled_fold_plain.
 //
 // Per (frame, marker): skin the marker's 3 frame vertices (pose blend,
 // weighted transforms), rebuild the marker in its local frame, and with the
@@ -30,6 +34,17 @@
 // buffer and, with the Jacobian, the marker's chain factors
 // uv[f][m] = [U = dms (k, c, d); V = dms T_rot (k, c, z)] (54 floats), from
 // which extras_cols.cu writes the last E columns.
+//
+// With FOLD (the stage-ii system's `fold_weights`; the Jacobian only) the
+// kernel also reads the observed markers obs (F, M, 3) and the data weights
+// w (F, M), and writes the Gauss-Newton data rows themselves: the weighted
+// residual (sim - obs) w in place of sim, and jm w in place of jm, so the
+// system skips its (F, M, 3, D) weighting pass. Each multiply by w comes
+// after its entry is final, as the Pallas kernel's `out * wrow`: the folded
+// trans, pose and inline-extras columns are the unfolded kernel's times w
+// bit for bit (nvcc contracts only a multiply that feeds an add). Under
+// TILED the 54 uv floats are weighted too, so extras_cols writes weighted
+// extra columns; those alone differ from the unfolded ones in rounding.
 //
 // Precision: the frame vertices and the local frame (marker position and
 // its 3x3 derivative blocks) are computed in float64 from the float32
@@ -171,7 +186,24 @@ __device__ void local_frame(const double v[3][3], const float cf[3],
   }
 }
 
-template <bool WITH_JAC, bool EXT, bool TILED>
+// FOLD: the (frame, marker) data weight, read where it is applied so that it
+// holds no register through the frame's phases; 1 (and unread) otherwise.
+template <bool FOLD>
+__device__ __forceinline__ float weight(const float* __restrict__ wrow,
+                                        size_t fm) {
+  if constexpr (FOLD) return wrow[fm];
+  else return 1.f;
+}
+
+// A finished entry times the weight under FOLD; the unfolded programs carry
+// no multiply.
+template <bool FOLD>
+__device__ __forceinline__ float weighted(float v, float w) {
+  if constexpr (FOLD) return v * w;
+  else return v;
+}
+
+template <bool WITH_JAC, bool EXT, bool TILED, bool FOLD>
 __global__ void __launch_bounds__(kThreads)
 marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
                    const float* __restrict__ grot,
@@ -192,8 +224,11 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
                    const float* __restrict__ datr,
                    const float* __restrict__ dv,
                    const float* __restrict__ vpshift,
-                   float* __restrict__ uv) {
+                   float* __restrict__ uv,
+                   const float* __restrict__ obs,
+                   const float* __restrict__ wrow) {
   static_assert(!(EXT && TILED), "one extras route at a time");
+  static_assert(!FOLD || WITH_JAC, "the weights fold into the Jacobian rows");
   extern __shared__ float smem[];
   __shared__ unsigned long long s_anc[64];
   __shared__ double s_vpd[9];    // [k][c] posed rest position, float64
@@ -319,9 +354,18 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
       float out[3];
       local_frame<WITH_JAC>(v, s_cf, out, s_dms);
       float* dst = sim + (static_cast<size_t>(f) * M + m) * 3;
-      dst[0] = out[0];
-      dst[1] = out[1];
-      dst[2] = out[2];
+      if constexpr (FOLD) {
+        // the weighted residual (sim - obs) w
+        const float* ob = obs + (static_cast<size_t>(f) * M + m) * 3;
+        const float w = wrow[static_cast<size_t>(f) * M + m];
+        dst[0] = (out[0] - ob[0]) * w;
+        dst[1] = (out[1] - ob[1]) * w;
+        dst[2] = (out[2] - ob[2]) * w;
+      } else {
+        dst[0] = out[0];
+        dst[1] = out[1];
+        dst[2] = out[2];
+      }
     }
     if (!WITH_JAC) continue;
 
@@ -370,16 +414,18 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
     if constexpr (TILED) {
       // the chain factors for extras_cols: U[k][c][d] = dms, then
       // V[k][c][z] = sum_d dms[k][c][d] T_rot[k][d][z]; counted from the
-      // block's end, where the S sweep leaves threads idle
+      // block's end, where the S sweep leaves threads idle; FOLD weights
+      // them, so that extras_cols writes weighted columns
       float* dst = uv + (static_cast<size_t>(f) * M + m) * 54;
+      const float w = weight<FOLD>(wrow, static_cast<size_t>(f) * M + m);
       for (int it = blockDim.x - 1 - tid; it < 54; it += blockDim.x) {
         if (it < 27) {
-          dst[it] = s_dms[it];
+          dst[it] = weighted<FOLD>(s_dms[it], w);
         } else {
           const int k = (it - 27) / 9, c = ((it - 27) / 3) % 3, z = it % 3;
           const float* dk = s_dms + k * 9 + c * 3;
           const float* Tk = s_Trot + k * 9;
-          dst[it] = dk[0] * Tk[z] + dk[1] * Tk[3 + z] + dk[2] * Tk[6 + z];
+          dst[it] = weighted<FOLD>(dk[0] * Tk[z] + dk[1] * Tk[3 + z] + dk[2] * Tk[6 + z], w);
         }
       }
     }
@@ -441,6 +487,7 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
     // products share each component load and run as independent chains.
     float* row = jm + (static_cast<size_t>(f) * M + m) * 3 * D;
     const int D_out = TILED ? D - E : D;   // TILED: extras_cols writes the rest
+    const float w = weight<FOLD>(wrow, static_cast<size_t>(f) * M + m);
     for (int d = tid; d < D_out; d += blockDim.x) {
       float v0, v1, v2;
       if (d < 3) {
@@ -467,14 +514,14 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
         v1 = s_UE[E + e];
         v2 = s_UE[2 * E + e];
       }
-      row[d] = v0;
-      row[D + d] = v1;
-      row[2 * D + d] = v2;
+      row[d] = weighted<FOLD>(v0, w);
+      row[D + d] = weighted<FOLD>(v1, w);
+      row[2 * D + d] = weighted<FOLD>(v2, w);
     }
   }
 }
 
-template <bool EXT, bool TILED>
+template <bool EXT, bool TILED, bool FOLD>
 cudaError_t launch(bool with_jac, dim3 grid, size_t bytes, cudaStream_t s,
                    int F, int M, int J, int featN, int body_dof, int D,
                    const float* grot, const float* atr, const float* feat,
@@ -484,24 +531,90 @@ cudaError_t launch(bool with_jac, dim3 grid, size_t bytes, cudaStream_t s,
                    const unsigned long long* ancmask, const float* hc,
                    float* sim, float* jm, int E, const float* extra,
                    const float* datr, const float* dv, const float* vpshift,
-                   float* uv) {
+                   float* uv, const float* obs, const float* wrow) {
   cudaError_t err;
   if (with_jac) {
-    err = allow_smem(marker_rows_kernel<true, EXT, TILED>, bytes);
+    err = allow_smem(marker_rows_kernel<true, EXT, TILED, FOLD>, bytes);
     if (err != cudaSuccess) return err;
-    marker_rows_kernel<true, EXT, TILED><<<grid, kThreads, bytes, s>>>(
+    marker_rows_kernel<true, EXT, TILED, FOLD><<<grid, kThreads, bytes, s>>>(
         F, M, J, featN, body_dof, D, grot, atr, feat, wrot, wtr, dr,
         trans, w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm, E, extra, datr,
-        dv, vpshift, uv);
+        dv, vpshift, uv, obs, wrow);
+  } else if constexpr (FOLD) {
+    return cudaErrorInvalidValue;
   } else {
-    err = allow_smem(marker_rows_kernel<false, EXT, TILED>, bytes);
+    err = allow_smem(marker_rows_kernel<false, EXT, TILED, false>, bytes);
     if (err != cudaSuccess) return err;
-    marker_rows_kernel<false, EXT, TILED><<<grid, kThreads, bytes, s>>>(
+    marker_rows_kernel<false, EXT, TILED, false><<<grid, kThreads, bytes, s>>>(
         F, M, J, featN, body_dof, D, grot, atr, feat, nullptr,
         nullptr, nullptr, trans, w3, nullptr, vsh3, pd3, cf, nullptr, nullptr,
-        sim, nullptr, E, extra, nullptr, dv, vpshift, nullptr);
+        sim, nullptr, E, extra, nullptr, dv, vpshift, nullptr, nullptr,
+        nullptr);
   }
   return cudaGetLastError();
+}
+
+// The inline routes (E = 0 or E <= 16 extras); FOLD also takes obs and w.
+template <bool FOLD>
+int rows_launch(bool with_jac, int F, int M, int J, int featN, int body_dof,
+                int hand_dof, int D, const float* grot, const float* atr,
+                const float* feat, const float* wrot, const float* wtr,
+                const float* dr, const float* trans, const float* w3,
+                const float* s3, const float* vsh3, const float* pd3,
+                const float* cf, const unsigned long long* ancmask,
+                const float* hc, float* sim, float* jm, int E,
+                const float* extra, const float* datr, const float* dv,
+                const float* obs, const float* wrow, void* stream) {
+  if (F < 1 || M < 1 || M > 65535 || J < 1 || J > 64 || E < 0 ||
+      E > kMaxExtra || D != 3 + body_dof + hand_dof + E ||
+      (FOLD && (obs == nullptr || wrow == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L(with_jac, J, featN, E);
+  const size_t bytes = static_cast<size_t>(L.total) * sizeof(float);
+  // frame tiles fastest: blocks resident on one SM tend to share a marker,
+  // whose posedirs rows then stay in L1
+  const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      E > 0 ? launch<true, false, FOLD>(with_jac, grid, bytes, s, F, M, J,
+                                        featN, body_dof, D, grot, atr, feat,
+                                        wrot, wtr, dr, trans, w3, s3, vsh3,
+                                        pd3, cf, ancmask, hc, sim, jm, E,
+                                        extra, datr, dv, nullptr, nullptr,
+                                        obs, wrow)
+            : launch<false, false, FOLD>(with_jac, grid, bytes, s, F, M, J,
+                                         featN, body_dof, D, grot, atr, feat,
+                                         wrot, wtr, dr, trans, w3, s3, vsh3,
+                                         pd3, cf, ancmask, hc, sim, jm, 0,
+                                         nullptr, nullptr, nullptr, nullptr,
+                                         nullptr, obs, wrow);
+  return static_cast<int>(err);
+}
+
+// The tiled route: vpshift (F, M, 3, 3) in; with the Jacobian jm's first
+// D - E columns (row stride D) and uv (F, M, 54) out.
+template <bool FOLD>
+int tiled_launch(bool with_jac, int F, int M, int J, int featN, int body_dof,
+                 int hand_dof, int D, int E, const float* grot,
+                 const float* atr, const float* feat, const float* wrot,
+                 const float* wtr, const float* dr, const float* trans,
+                 const float* w3, const float* s3, const float* vsh3,
+                 const float* pd3, const float* cf,
+                 const unsigned long long* ancmask, const float* hc,
+                 const float* vpshift, float* sim, float* jm, float* uv,
+                 const float* obs, const float* wrow, void* stream) {
+  if (F < 1 || M < 1 || M > 65535 || J < 1 || J > 64 || E < 1 ||
+      D != 3 + body_dof + hand_dof + E ||
+      (FOLD && (obs == nullptr || wrow == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Layout L(with_jac, J, featN, 0);
+  const size_t bytes = static_cast<size_t>(L.total) * sizeof(float);
+  const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
+  return static_cast<int>(launch<false, true, FOLD>(
+      with_jac, grid, bytes, static_cast<cudaStream_t>(stream), F, M, J,
+      featN, body_dof, D, grot, atr, feat, wrot, wtr, dr, trans, w3, s3, vsh3,
+      pd3, cf, ancmask, hc, sim, jm, E, nullptr, nullptr, nullptr, vpshift,
+      uv, obs, wrow));
 }
 
 }  // namespace
@@ -514,31 +627,27 @@ extern "C" int marker_rows_launch(
     const float* cf, const unsigned long long* ancmask, const float* hc,
     float* sim, float* jm, int E, const float* extra, const float* datr,
     const float* dv, void* stream) {
-  if (F < 1 || M < 1 || M > 65535 || J < 1 || J > 64 || E < 0 ||
-      E > kMaxExtra || D != 3 + body_dof + hand_dof + E)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(with_jac != 0, J, featN, E);
-  const size_t bytes = static_cast<size_t>(L.total) * sizeof(float);
-  // frame tiles fastest: blocks resident on one SM tend to share a marker,
-  // whose posedirs rows then stay in L1
-  const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      E > 0 ? launch<true, false>(with_jac != 0, grid, bytes, s, F, M, J,
-                                  featN, body_dof, D, grot, atr, feat, wrot,
-                                  wtr, dr, trans, w3, s3, vsh3, pd3, cf,
-                                  ancmask, hc, sim, jm, E, extra, datr, dv,
-                                  nullptr, nullptr)
-            : launch<false, false>(with_jac != 0, grid, bytes, s, F, M, J,
-                                   featN, body_dof, D, grot, atr, feat, wrot,
-                                   wtr, dr, trans, w3, s3, vsh3, pd3, cf,
-                                   ancmask, hc, sim, jm, 0, nullptr, nullptr,
-                                   nullptr, nullptr, nullptr);
-  return static_cast<int>(err);
+  return rows_launch<false>(with_jac != 0, F, M, J, featN, body_dof, hand_dof,
+                            D, grot, atr, feat, wrot, wtr, dr, trans, w3, s3,
+                            vsh3, pd3, cf, ancmask, hc, sim, jm, E, extra,
+                            datr, dv, nullptr, nullptr, stream);
 }
 
-// The tiled route: vpshift (F, M, 3, 3) in; with the Jacobian jm's first
-// D - E columns (row stride D) and uv (F, M, 54) out.
+// FOLD: obs (F, M, 3) and w (F, M) in; rw (F, M, 3) and jw (F, M, 3, D) out.
+extern "C" int marker_rows_fold_launch(
+    int F, int M, int J, int featN, int body_dof, int hand_dof, int D,
+    const float* grot, const float* atr, const float* feat,
+    const float* wrot, const float* wtr, const float* dr, const float* trans,
+    const float* w3, const float* s3, const float* vsh3, const float* pd3,
+    const float* cf, const unsigned long long* ancmask, const float* hc,
+    float* rw, float* jw, int E, const float* extra, const float* datr,
+    const float* dv, const float* obs, const float* wrow, void* stream) {
+  return rows_launch<true>(true, F, M, J, featN, body_dof, hand_dof, D, grot,
+                           atr, feat, wrot, wtr, dr, trans, w3, s3, vsh3, pd3,
+                           cf, ancmask, hc, rw, jw, E, extra, datr, dv, obs,
+                           wrow, stream);
+}
+
 extern "C" int marker_rows_tiled_launch(
     int with_jac, int F, int M, int J, int featN, int body_dof, int hand_dof,
     int D, int E, const float* grot, const float* atr, const float* feat,
@@ -546,15 +655,24 @@ extern "C" int marker_rows_tiled_launch(
     const float* w3, const float* s3, const float* vsh3, const float* pd3,
     const float* cf, const unsigned long long* ancmask, const float* hc,
     const float* vpshift, float* sim, float* jm, float* uv, void* stream) {
-  if (F < 1 || M < 1 || M > 65535 || J < 1 || J > 64 || E < 1 ||
-      D != 3 + body_dof + hand_dof + E)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(with_jac != 0, J, featN, 0);
-  const size_t bytes = static_cast<size_t>(L.total) * sizeof(float);
-  const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
-  return static_cast<int>(launch<false, true>(
-      with_jac != 0, grid, bytes, static_cast<cudaStream_t>(stream), F, M, J,
-      featN, body_dof, D, grot, atr, feat, wrot, wtr, dr, trans, w3, s3, vsh3,
-      pd3, cf, ancmask, hc, sim, jm, E, nullptr, nullptr, nullptr, vpshift,
-      uv));
+  return tiled_launch<false>(with_jac != 0, F, M, J, featN, body_dof,
+                             hand_dof, D, E, grot, atr, feat, wrot, wtr, dr,
+                             trans, w3, s3, vsh3, pd3, cf, ancmask, hc,
+                             vpshift, sim, jm, uv, nullptr, nullptr, stream);
+}
+
+// The tiled route with FOLD: rw, jw's first D - E columns and the weighted
+// uv out.
+extern "C" int marker_rows_tiled_fold_launch(
+    int F, int M, int J, int featN, int body_dof, int hand_dof, int D, int E,
+    const float* grot, const float* atr, const float* feat,
+    const float* wrot, const float* wtr, const float* dr, const float* trans,
+    const float* w3, const float* s3, const float* vsh3, const float* pd3,
+    const float* cf, const unsigned long long* ancmask, const float* hc,
+    const float* vpshift, float* rw, float* jw, float* uv, const float* obs,
+    const float* wrow, void* stream) {
+  return tiled_launch<true>(true, F, M, J, featN, body_dof, hand_dof, D, E,
+                            grot, atr, feat, wrot, wtr, dr, trans, w3, s3,
+                            vsh3, pd3, cf, ancmask, hc, vpshift, rw, jw, uv,
+                            obs, wrow, stream);
 }

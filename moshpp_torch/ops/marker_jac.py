@@ -16,7 +16,11 @@ enter:
                                             `<.,ext>` `_marker_kernel_ext`,
                                             `_sim_marker_kernel_ext`;
                                             `<.,tiled>` `_marker_kernel_tiled`,
-                                            `_sim_marker_kernel_tiled`
+                                            `_sim_marker_kernel_tiled`;
+                                            `<jac[,..],fold>`
+                                            `_marker_jac_w_kernel`,
+                                            `_marker_jac_w_kernel_ext`,
+                                            `_marker_jac_w_kernel_tiled`
   `extras_tangent`  csrc/extras_tangent.cu  `_extras_tangent_kernel`
   `extras_cols`     csrc/extras_cols.cu     `_extras_cols_kernel`
 
@@ -26,6 +30,11 @@ geometry are two matmuls here (`extra_shifts`), the two stages run on the
 shifted geometry (`<.,tiled>`, programs free of E), and two more kernels
 compute the E extra columns, which `extras_cols` writes into jm's last E
 columns in place.
+
+`marker_resid_and_wjac` is the folded-weights entry point (the stage-ii
+system's `fold_weights`): the `<jac,..,fold>` marker rows also read the
+observations and the data weights and write the weighted residual and the
+weighted Jacobian, so the system skips its (F, M, 3, D) weighting pass.
 
 Each wrapper dispatches on the device of its input: a CPU tensor runs the
 plain PyTorch version (`ops/lbs_jacobian.py`), a CUDA tensor launches the
@@ -57,11 +66,12 @@ MAX_INLINE_EXTRAS = 16
 UV_WIDTH = 54     # the marker rows' chain factors U (27) and V (27)
 
 
-def _names(with_jac: bool, route: str = ""):
+def _names(with_jac: bool, route: str = "", fold: bool = False):
     """(fk_smalls, marker_rows) counter names of one variant; route "" (no
-    extras), "ext" (inline extras) or "tiled"."""
+    extras), "ext" (inline extras) or "tiled"; `fold` names the folded
+    marker rows (whose fk_smalls is the unfolded one's)."""
     tag = ("jac" if with_jac else "sim") + (f",{route}" if route else "")
-    return f"fk_smalls<{tag}>", f"marker_rows<{tag}>"
+    return f"fk_smalls<{tag}>", f"marker_rows<{tag}{',fold' if fold else ''}>"
 
 
 FK_JAC, ROWS_JAC = _names(True)
@@ -70,6 +80,9 @@ FK_JAC_EXT, ROWS_JAC_EXT = _names(True, "ext")
 FK_SIM_EXT, ROWS_SIM_EXT = _names(False, "ext")
 FK_JAC_TILED, ROWS_JAC_TILED = _names(True, "tiled")
 FK_SIM_TILED, ROWS_SIM_TILED = _names(False, "tiled")
+ROWS_JAC_FOLD = _names(True, fold=True)[1]
+ROWS_JAC_EXT_FOLD = _names(True, "ext", True)[1]
+ROWS_JAC_TILED_FOLD = _names(True, "tiled", True)[1]
 TANGENT = "extras_tangent"
 COLS = "extras_cols"
 
@@ -283,6 +296,18 @@ def fk_smalls(theta: torch.Tensor, tables: MarkerJacTables,
 
 # ---- marker_rows -------------------------------------------------------------
 
+def _check_smalls(sm: JointSmalls, F: int, J: int, with_jac: bool) -> None:
+    """Raise unless the joint quantities a marker_rows kernel reads are
+    contiguous float32 CUDA tensors of their shapes."""
+    kernels.check("grot", sm.grot, (F, J, 3, 3))
+    kernels.check("atr", sm.atr, (F, J, 3))
+    kernels.check("feat", sm.feat, (F, J - 1, 3, 3))
+    if with_jac:
+        kernels.check("wrot", sm.wrot, (F, J, 3, 3, 3))
+        kernels.check("wtr", sm.wtr, (F, J, 3, 3))
+        kernels.check("dr", sm.dr, (F, J, 3, 3, 3))
+
+
 def _rows_plain(sm: JointSmalls, trans: torch.Tensor,
                 tables: MarkerJacTables, with_jac: bool,
                 extra: Optional[torch.Tensor] = None,
@@ -340,17 +365,11 @@ def marker_rows(sm: JointSmalls, trans: torch.Tensor,
     M, J, D, E = (tables.num_markers, tables.num_joints, tables.dof,
                   tables.n_extra)
     kernels.check("trans", trans, (F, 3))
-    kernels.check("grot", sm.grot, (F, J, 3, 3))
-    kernels.check("atr", sm.atr, (F, J, 3))
-    kernels.check("feat", sm.feat, (F, J - 1, 3, 3))
+    _check_smalls(sm, F, J, with_jac)
     _check_extra(tables, extra, F)
     if E:
         kernels.check("extra", extra, (F, E))
-    if with_jac:
-        kernels.check("wrot", sm.wrot, (F, J, 3, 3, 3))
-        kernels.check("wtr", sm.wtr, (F, J, 3, 3))
-        kernels.check("dr", sm.dr, (F, J, 3, 3, 3))
-        if E:
+        if with_jac:
             kernels.check("datr", sm.datr, (F, E, J, 3))
     sim = torch.empty((F, M, 3), dtype=torch.float32, device=trans.device)
     jm = (torch.empty((F, M, 3, D), dtype=torch.float32, device=trans.device)
@@ -364,6 +383,64 @@ def marker_rows(sm: JointSmalls, trans: torch.Tensor,
         p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
         p(tables.hc), p(sim), p(jm), E, p(extra), p(sm.datr), p(tables.dv))
     return sim, jm
+
+
+def _fold(sim, jm, obs, wrow):
+    """The Gauss-Newton data rows (sim - obs) w and jm w, computed exactly as
+    the stage-ii system weights the unfolded rows."""
+    return (sim - obs) * wrow[..., None], jm * wrow[..., None, None]
+
+
+def _check_fold_inputs(obs, wrow, F: int, M: int) -> None:
+    """Raise unless obs (F, M, 3) and wrow (F, M) are contiguous float32
+    CUDA tensors (`marker_resid_and_wjac` makes them so)."""
+    kernels.check("obs", obs, (F, M, 3))
+    kernels.check("wrow", wrow, (F, M))
+
+
+def marker_rows_fold_plain(sm: JointSmalls, trans: torch.Tensor,
+                           tables: MarkerJacTables, obs: torch.Tensor,
+                           wrow: torch.Tensor,
+                           extra: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of `marker_rows<jac[,ext],fold>`: (rw (F, M, 3),
+    jw (F, M, 3, D))."""
+    _check_extra(tables, extra, trans.shape[0])
+    kernels.note_plain(_names(True, _inline_route(tables), True)[1], trans)
+    sim, _, cols = _rows_plain(sm, trans, tables, True, extra)
+    return _fold(sim, torch.cat(cols, dim=-1), obs, wrow)
+
+
+def marker_rows_fold(sm: JointSmalls, trans: torch.Tensor,
+                     tables: MarkerJacTables, obs: torch.Tensor,
+                     wrow: torch.Tensor,
+                     extra: Optional[torch.Tensor] = None):
+    """The weighted residual rw = (sim - obs) w (F, M, 3) and the weighted
+    Jacobian jw = jm w (F, M, 3, D) from the observed markers obs (F, M, 3)
+    and the data weights wrow (F, M), contiguous float32; extra (F, E) when
+    the tables have E <= 16 extra dims."""
+    if not trans.is_cuda:
+        return marker_rows_fold_plain(sm, trans, tables, obs, wrow, extra)
+    F = trans.shape[0]
+    M, J, D, E = (tables.num_markers, tables.num_joints, tables.dof,
+                  tables.n_extra)
+    kernels.check("trans", trans, (F, 3))
+    _check_fold_inputs(obs, wrow, F, M)
+    _check_extra(tables, extra, F)
+    if E:
+        kernels.check("extra", extra, (F, E))
+        kernels.check("datr", sm.datr, (F, E, J, 3))
+    _check_smalls(sm, F, J, True)
+    rw = torch.empty((F, M, 3), dtype=torch.float32, device=trans.device)
+    jw = torch.empty((F, M, 3, D), dtype=torch.float32, device=trans.device)
+    p = kernels.ptr
+    kernels.launch(
+        "marker_rows_fold_launch", _names(True, _inline_route(tables), True)[1],
+        F, M, J, tables.feat_n, tables.body_dof, tables.hand_dof, D,
+        p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr),
+        p(trans), p(tables.w3), p(tables.s3), p(tables.vsh3), p(tables.pd3),
+        p(tables.cf), p(tables.ancmask), p(tables.hc), p(rw), p(jw), E,
+        p(extra), p(sm.datr), p(tables.dv), p(obs), p(wrow))
+    return rw, jw
 
 
 # ---- the tiled extras route ---------------------------------------------------
@@ -438,14 +515,11 @@ def extras_tangent(q: torch.Tensor, grot: torch.Tensor,
     return datr
 
 
-def marker_rows_tiled_plain(sm: JointSmalls, trans: torch.Tensor,
-                            vpshift: torch.Tensor, tables: MarkerJacTables,
-                            with_jac: bool):
-    """Plain PyTorch version of `marker_rows<., tiled>`: (sim (F, M, 3),
-    jm (F, M, 3, D) with its last E columns zero, uv (F, M, 54)), the last
-    two None without the Jacobian."""
+def _tiled_rows(sm: JointSmalls, trans: torch.Tensor, vpshift: torch.Tensor,
+                tables: MarkerJacTables, with_jac: bool):
+    """The tiled marker rows' arithmetic: (sim, jm with its last E columns
+    zero, uv), the last two None without the Jacobian."""
     F = trans.shape[0]
-    kernels.note_plain(_names(with_jac, "tiled")[1], trans)
     M, J = tables.num_markers, tables.num_joints
     sim, dms, cols = _rows_plain(sm, trans, tables, with_jac,
                                  vshift=vpshift.reshape(F, 3 * M, 3))
@@ -458,6 +532,16 @@ def marker_rows_tiled_plain(sm: JointSmalls, trans: torch.Tensor,
     V = torch.einsum("fmkcd,fmkdz->fmkcz", dms, T_rot.reshape(F, M, 3, 3, 3))
     uv = torch.cat([dms.reshape(F, M, 27), V.reshape(F, M, 27)], dim=-1)
     return sim, jm, uv
+
+
+def marker_rows_tiled_plain(sm: JointSmalls, trans: torch.Tensor,
+                            vpshift: torch.Tensor, tables: MarkerJacTables,
+                            with_jac: bool):
+    """Plain PyTorch version of `marker_rows<., tiled>`: (sim (F, M, 3),
+    jm (F, M, 3, D) with its last E columns zero, uv (F, M, 54)), the last
+    two None without the Jacobian."""
+    kernels.note_plain(_names(with_jac, "tiled")[1], trans)
+    return _tiled_rows(sm, trans, vpshift, tables, with_jac)
 
 
 def marker_rows_tiled(sm: JointSmalls, trans: torch.Tensor,
@@ -473,13 +557,7 @@ def marker_rows_tiled(sm: JointSmalls, trans: torch.Tensor,
                   tables.n_extra)
     kernels.check("trans", trans, (F, 3))
     kernels.check("vpshift", vpshift, (F, M, 3, 3))
-    kernels.check("grot", sm.grot, (F, J, 3, 3))
-    kernels.check("atr", sm.atr, (F, J, 3))
-    kernels.check("feat", sm.feat, (F, J - 1, 3, 3))
-    if with_jac:
-        kernels.check("wrot", sm.wrot, (F, J, 3, 3, 3))
-        kernels.check("wtr", sm.wtr, (F, J, 3, 3))
-        kernels.check("dr", sm.dr, (F, J, 3, 3, 3))
+    _check_smalls(sm, F, J, with_jac)
     e = lambda *s: torch.empty(s, dtype=torch.float32, device=trans.device)
     sim = e(F, M, 3)
     jm = e(F, M, 3, D) if with_jac else None
@@ -493,6 +571,50 @@ def marker_rows_tiled(sm: JointSmalls, trans: torch.Tensor,
         p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
         p(tables.hc), p(vpshift), p(sim), p(jm), p(uv))
     return sim, jm, uv
+
+
+def marker_rows_tiled_fold_plain(sm: JointSmalls, trans: torch.Tensor,
+                                 vpshift: torch.Tensor,
+                                 tables: MarkerJacTables, obs: torch.Tensor,
+                                 wrow: torch.Tensor):
+    """Plain PyTorch version of `marker_rows<jac,tiled,fold>`: (rw (F, M, 3),
+    jw (F, M, 3, D) with its last E columns zero, uv w (F, M, 54)), the
+    chain factors weighted as the Pallas kernel weights them, so that
+    `extras_cols` writes weighted extra columns."""
+    kernels.note_plain(ROWS_JAC_TILED_FOLD, trans)
+    sim, jm, uv = _tiled_rows(sm, trans, vpshift, tables, True)
+    rw, jw = _fold(sim, jm, obs, wrow)
+    return rw, jw, uv * wrow[..., None]
+
+
+def marker_rows_tiled_fold(sm: JointSmalls, trans: torch.Tensor,
+                           vpshift: torch.Tensor, tables: MarkerJacTables,
+                           obs: torch.Tensor, wrow: torch.Tensor):
+    """`marker_rows_tiled` with the Jacobian and the data weights folded in:
+    rw (F, M, 3), jw (F, M, 3, D) with its first 3 + P columns written, and
+    the weighted chain factors uv w (F, M, 54), from the observed markers
+    obs (F, M, 3) and the weights wrow (F, M), contiguous float32."""
+    if not trans.is_cuda:
+        return marker_rows_tiled_fold_plain(sm, trans, vpshift, tables, obs,
+                                            wrow)
+    F = trans.shape[0]
+    M, J, D, E = (tables.num_markers, tables.num_joints, tables.dof,
+                  tables.n_extra)
+    kernels.check("trans", trans, (F, 3))
+    kernels.check("vpshift", vpshift, (F, M, 3, 3))
+    _check_fold_inputs(obs, wrow, F, M)
+    _check_smalls(sm, F, J, True)
+    e = lambda *s: torch.empty(s, dtype=torch.float32, device=trans.device)
+    rw, jw, uv = e(F, M, 3), e(F, M, 3, D), e(F, M, UV_WIDTH)
+    p = kernels.ptr
+    kernels.launch(
+        "marker_rows_tiled_fold_launch", ROWS_JAC_TILED_FOLD, F, M, J,
+        tables.feat_n, tables.body_dof, tables.hand_dof, D, E, p(sm.grot),
+        p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), p(trans),
+        p(tables.w3), p(tables.s3), p(tables.vsh3), p(tables.pd3),
+        p(tables.cf), p(tables.ancmask), p(tables.hc), p(vpshift), p(rw),
+        p(jw), p(uv), p(obs), p(wrow))
+    return rw, jw, uv
 
 
 def extras_cols_plain(datr: torch.Tensor, uv: torch.Tensor,
@@ -578,6 +700,30 @@ def marker_sim_and_jacobian(model: SurfaceModel, tables: MarkerJacTables,
     theta, trans, extra = kernel_inputs(model, tables, x)
     return marker_rows(fk_smalls(theta, tables, True, extra), trans, tables,
                        True, extra)
+
+
+def marker_resid_and_wjac(model: SurfaceModel, tables: MarkerJacTables,
+                          x: torch.Tensor, obs: torch.Tensor,
+                          wrow: torch.Tensor):
+    """Weighted-data variant of `marker_sim_and_jacobian`: x (F, 3+P+E),
+    obs (F, M, 3), wrow (F, M) -> (rw (F, M, 3), jw (F, M, 3, 3+P+E)) with
+    rw = (sim - obs) wrow and jw = jm wrow, the Gauss-Newton data rows
+    weighted in the marker kernel (no (F, M, 3, D) weighting pass). The
+    route follows the extras' width as in `marker_sim_and_jacobian`; on the
+    tiled route the weighted chain factors make the extra columns weighted
+    too."""
+    obs = obs.to(torch.float32).contiguous()
+    wrow = wrow.to(torch.float32).contiguous()
+    theta, trans, extra = kernel_inputs(model, tables, x)
+    if tables.route == "tiled":
+        jshift, vpshift = extra_shifts(tables, extra)
+        sm = fk_smalls_tiled(theta, jshift, tables, True)
+        datr = extras_tangent(sm.q, sm.grot, tables)
+        rw, jw, uv = marker_rows_tiled_fold(sm, trans, vpshift, tables, obs,
+                                            wrow)
+        return rw, extras_cols(datr, uv, tables, jw)
+    return marker_rows_fold(fk_smalls(theta, tables, True, extra), trans,
+                            tables, obs, wrow, extra)
 
 
 def marker_sim(model: SurfaceModel, tables: MarkerJacTables,

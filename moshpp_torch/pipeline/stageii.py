@@ -18,9 +18,11 @@ route. The frame axis is data-parallel exactly as in the JAX package:
 
 Each phase is one batched dogleg solve (`solver/gauss_newton.py`). Its
 Gauss-Newton system is assembled directly: the marker rows and their exact
-Jacobian from the marker kernels (`ops/marker_jac.py`), the normal
-equations B = JdᵀJd as one float32 `torch.bmm` with TF32 off, the prior and
-regularizers as analytic blocks. The direction is the fused dogleg kernel
+Jacobian from the marker kernels (`ops/marker_jac.py`), weighted by the
+data weights in a torch pass or, with `fold_weights`, inside the marker
+kernel (`marker_resid_and_wjac`); the normal equations B = JdᵀJd as one
+float32 `torch.bmm` with TF32 off, the prior and regularizers as analytic
+blocks. The direction is the fused dogleg kernel
 (`solver/pcg.py`) in PCG phases and a batched Cholesky otherwise; on CUDA
 the polish runs deep PCG through the kernel.
 
@@ -42,7 +44,8 @@ from moshpp_torch.models.body_model import (MODEL_TYPE_INFO, SurfaceModel,
                                             fullpose_from_pose, lbs_forward,
                                             pose_part_ids)
 from moshpp_torch.markers.vids import smplx_eyeball_mask
-from moshpp_torch.ops.marker_jac import (MarkerJacTables, marker_sim,
+from moshpp_torch.ops.marker_jac import (MarkerJacTables,
+                                         marker_resid_and_wjac, marker_sim,
                                          marker_sim_and_jacobian,
                                          prepare_marker_jac_tables, split_x)
 from moshpp_torch.ops.marker_transform import (MarkerFrameIndices,
@@ -91,6 +94,9 @@ class StageIIOptions:
     # sequences longer than this solve in chunks in the JAX package; the
     # port runs one batch and raises beyond it
     chunk_frames: int = 16384
+    # fold the per-frame data weights and the residual into the marker
+    # kernel (skips the (F, M, 3, D) weighting pass over the Jacobian)
+    fold_weights: bool = False
     weights: Optional[Dict[str, float]] = None
     knn_k: int = 8
 
@@ -350,15 +356,19 @@ def make_stageii_system(prob: StageIIProblem,
                  velo_w[None, :] * aux["velo_on"][:, None])
         return f, g, dvec, ppw
 
-    def data_rows(sim, aux):
-        wrow = aux["mask"] * aux["wt_data"][:, None]               # (N, M)
-        return (sim - aux["markers"]) * wrow[..., None], wrow
+    def data_weights(aux):
+        return aux["mask"] * aux["wt_data"][:, None]               # (N, M)
 
     def system_fn(x, aux):
         N = x.shape[0]
-        sim, Jm = marker_sim_and_jacobian(model, tables, x)
-        rd, wrow = data_rows(sim, aux)
-        Jd = Jm * wrow[..., None, None]
+        wrow = data_weights(aux)
+        if opts.fold_weights:
+            rd, Jd = marker_resid_and_wjac(model, tables, x, aux["markers"],
+                                           wrow)
+        else:
+            sim, Jm = marker_sim_and_jacobian(model, tables, x)
+            rd = (sim - aux["markers"]) * wrow[..., None]
+            Jd = Jm * wrow[..., None, None]
         f0 = torch.sum(rd * rd, dim=(1, 2))
         g0 = torch.sum(Jd * rd[..., None], dim=(1, 2))
         J2 = Jd.reshape(N, -1, D)
@@ -373,7 +383,8 @@ def make_stageii_system(prob: StageIIProblem,
         return f, g0 + gq, B
 
     def cost_fn(x, aux):
-        rd, _ = data_rows(marker_sim(model, tables, x), aux)
+        rd = (marker_sim(model, tables, x) - aux["markers"]) * data_weights(
+            aux)[..., None]
         return quad(x, aux, torch.sum(rd * rd, dim=(1, 2)), cost_only=True)[0]
 
     return GNSystem(system_fn, cost_fn)

@@ -1,8 +1,9 @@
-"""Fused batched dogleg direction on the H100.
+"""Fused batched dogleg direction, and the plain PCG direction, on the H100.
 
-Port of `moshpp_tpu/solver/pallas_pcg.py::dogleg_direction_batched`: the
-Pallas `_direction_kernel` becomes the hand-written CUDA kernel
-`csrc/dogleg_direction.cu`. The wrapper takes B batch-major, (N, D, D)
+Port of `moshpp_tpu/solver/pallas_pcg.py`: the Pallas `_direction_kernel`
+(`dogleg_direction_batched`) and `_pcg_kernel` (`pcg_direction_batched`)
+become the two modes of the hand-written CUDA kernel
+`csrc/dogleg_direction.cu`. The wrappers take B batch-major, (N, D, D)
 contiguous per frame; the TPU's frame-minor (D, D, N) layout lever is not
 ported. A CPU tensor runs the plain PyTorch version, a CUDA tensor launches
 the kernel or raises.
@@ -19,7 +20,8 @@ from moshpp_torch.solver.gauss_newton import (DoglegOptions, _bmv, _damp,
                                               _masked_system)
 
 KERNEL = "dogleg_direction"
-# The kernel holds a frame's B and one vector in dynamic shared memory,
+PCG_KERNEL = "pcg_direction"
+# Both modes hold a frame's B and one vector in dynamic shared memory,
 # (D^2 + D) floats, beside 128 B of static scratch; an H100 block may have
 # 232,448 B, so D <= 240 (D=206, the SMPL-X face path: 170,568 B).
 SMEM_PER_BLOCK = 232_448
@@ -37,7 +39,7 @@ def check_direction_width(D: int) -> None:
     need = direction_smem_bytes(D)
     if need > SMEM_PER_BLOCK:
         raise ValueError(
-            f"dogleg direction at D={D} needs {need} B of shared memory a "
+            f"the direction kernel at D={D} needs {need} B of shared memory a "
             f"block; the kernel has {SMEM_PER_BLOCK} B (D <= 240)")
 
 
@@ -56,24 +58,47 @@ def dogleg_direction_plain(g, B, plin, mask, delta, iters: int,
     return p, p_gn, pred
 
 
+def pcg_direction_plain(g, B, plin, iters: int):
+    """Plain PyTorch version of the PCG mode: `_gn_direction_pcg`."""
+    kernels.note_plain(PCG_KERNEL, g)
+    return _gn_direction_pcg(g, B, plin, iters)
+
+
+def _in_orders(fn, args, seeds):
+    """fn(*args) with the unknowns in the given order and in one fixed
+    random order per seed, each output put back in the given order: (N, D)
+    arguments and outputs are permuted along D, (N, D, D) ones along both,
+    the rest pass as they are."""
+    D = args[0].shape[1]
+    outs = [fn(*args)]
+    for seed in seeds:
+        perm = torch.randperm(D, generator=torch.Generator().manual_seed(
+            seed)).to(args[0].device)
+        inv = torch.argsort(perm)
+
+        def permuted(t):
+            if not torch.is_tensor(t) or t.dim() < 2:
+                return t
+            t = t[:, perm]
+            return (t[:, :, perm] if t.dim() == 3 else t).contiguous()
+        out = fn(*map(permuted, args))
+        outs.append(tuple(o[:, inv] if o.dim() == 2 else o for o in out))
+    return outs
+
+
 def plain_in_orders(g, B, plin, mask, delta, iters: int, damping: float,
                     seeds=(1, 2)):
     """The plain version's outputs (p, p_gn, pred) with the unknowns in the
     given order and in one fixed random order per seed, each put back in the
     given order: unconverged CG is chaotic in the summation order, and these
     runs measure how far float32 alone moves the result."""
-    D = g.shape[1]
-    outs = [dogleg_direction_plain(g, B, plin, mask, delta, iters, damping)]
-    for seed in seeds:
-        perm = torch.randperm(D, generator=torch.Generator().manual_seed(
-            seed)).to(g.device)
-        inv = torch.argsort(perm)
-        p, p_gn, pred = dogleg_direction_plain(
-            g[:, perm].contiguous(), B[:, perm][:, :, perm].contiguous(),
-            plin[:, perm].contiguous(), mask[:, perm].contiguous(), delta,
-            iters, damping)
-        outs.append((p[:, inv], p_gn[:, inv], pred))
-    return outs
+    return _in_orders(dogleg_direction_plain,
+                      (g, B, plin, mask, delta, iters, damping), seeds)
+
+
+def pcg_plain_in_orders(g, B, plin, iters: int, seeds=(1, 2)):
+    """`plain_in_orders` of the PCG mode: (p_gn, ok) in each order."""
+    return _in_orders(pcg_direction_plain, (g, B, plin, iters), seeds)
 
 
 def direction_test_system(n: int, d: int, cond: float, *, seed: int = 0,
@@ -141,3 +166,30 @@ def dogleg_direction_batched(g: torch.Tensor, B: torch.Tensor,
                    float(damping), P(g), P(B), P(plin), P(mask), P(delta),
                    P(p), P(p_gn), P(pred))
     return p, p_gn, pred
+
+
+def pcg_direction_batched(g: torch.Tensor, B: torch.Tensor,
+                          plin: torch.Tensor, iters: int):
+    """Batched Gauss-Newton direction by Jacobi-PCG on B p = -g.
+
+    (g (N, D), B (N, D, D) symmetric, already masked and damped by the
+    caller, plin (N, D) warm start) -> (p_gn (N, D), zero where not ok;
+    ok (N,) bool: g.p_gn < 0 and p_gn finite). The warm start is taken only
+    where it lowers the residual, and a breakdown freezes the iterate. No
+    solve calls it, in the port as in the JAX package, whose dogleg takes the
+    fused `dogleg_direction_batched`; it is the entry point of the Pallas
+    `_pcg_kernel`.
+    """
+    N, D = g.shape
+    check_direction_width(D)
+    if not g.is_cuda:
+        return pcg_direction_plain(g, B, plin, iters)
+    for name, t, shape in (("g", g, (N, D)), ("B", B, (N, D, D)),
+                           ("plin", plin, (N, D))):
+        kernels.check(name, t, shape)
+    p_gn = torch.empty_like(g)
+    ok = torch.empty((N,), dtype=torch.bool, device=g.device)
+    P = kernels.ptr
+    kernels.launch("pcg_direction_launch", PCG_KERNEL, N, D, int(iters),
+                   P(g), P(B), P(plin), P(p_gn), P(ok))
+    return p_gn, ok

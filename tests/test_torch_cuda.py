@@ -24,7 +24,7 @@ from moshpp_torch.models import make_synthetic_model  # noqa: E402
 from moshpp_torch.ops import marker_jac as mj  # noqa: E402
 from moshpp_torch.ops.marker_transform import (marker_coeffs,  # noqa: E402
                                                select_frame_indices)
-from moshpp_torch.solver import pcg  # noqa: E402
+from moshpp_torch.solver import gauss_newton, pcg  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -220,6 +220,144 @@ def test_direction_kernel_matches_plain(dev, D, cond, iters):
         assert float((other[0] - out_64[0]).abs().max()) > 10.0 * e_p
 
 
+def _fold_inputs(tables, F, rng, dev):
+    """Observations near the markers and positive data weights, with a
+    marker of frame 1 and all of frame 2's first two at w = 0."""
+    M = tables.num_markers
+    obs = torch.as_tensor(rng.normal(size=(F, M, 3)).astype(np.float32) * 0.3,
+                          device=dev)
+    w = torch.as_tensor(rng.uniform(0.5, 400.0, size=(F, M)).astype(
+        np.float32), device=dev)
+    w[1, M // 2] = 0.0
+    w[2, :2] = 0.0
+    return obs, w
+
+
+def _check_fold(rw_k, jw_k, rw_p, jw_p, sim_u, jm_u, obs, w, n_exact):
+    """The folded kernel's (rw, jw) against its plain version (sim within
+    2e-5 m times the largest weight, jm within 3e-4 of the largest entry),
+    and against the unfolded kernel's (sim, jm) times w: bit for bit on rw
+    and jw's first `n_exact` columns."""
+    torch.cuda.synchronize()
+    wmax = float(w.max())
+    torch.testing.assert_close(rw_k, rw_p, rtol=0, atol=2e-5 * wmax)
+    scale = max(float(jw_p.abs().max()), 1.0)
+    torch.testing.assert_close(jw_k, jw_p, rtol=0, atol=3e-4 * scale)
+    assert torch.equal(rw_k, (sim_u - obs) * w[..., None])
+    jw_u = jm_u * w[..., None, None]
+    assert torch.equal(jw_k[..., :n_exact], jw_u[..., :n_exact])
+    zero = w == 0
+    assert float(jw_k[zero].abs().max()) == 0.0
+    assert float(rw_k[zero].abs().max()) == 0.0
+    return jw_u
+
+
+@pytest.mark.parametrize("family,dph,M", CASES)
+def test_marker_rows_fold_kernel_matches(dev, family, dph, M):
+    """marker_rows<jac,fold> (K17) at E=0: against its plain version, and
+    against the unfolded kernel times w bit for bit."""
+    model, tables, rng = _tables(family, dph or 6, M, dev)
+    F = 37
+    x = torch.as_tensor((rng.normal(size=(F, 3 + model.pose_dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    theta, trans, _ = mj.kernel_inputs(model, tables, x)
+    sm = mj.fk_smalls_plain(theta, tables, True)
+    obs, w = _fold_inputs(tables, F, rng, dev)
+    rw_k, jw_k = mj.marker_rows_fold(sm, trans, tables, obs, w)
+    rw_p, jw_p = mj.marker_rows_fold_plain(sm, trans, tables, obs, w)
+    sim_u, jm_u = mj.marker_rows(sm, trans, tables, True)
+    _check_fold(rw_k, jw_k, rw_p, jw_p, sim_u, jm_u, obs, w, tables.dof)
+
+
+def test_marker_rows_ext_fold_kernel_matches(dev):
+    """marker_rows<jac,ext,fold> (K18) at N=128, E=8, D=125, bit for bit
+    against the unfolded kernel times w, extra columns included."""
+    model, tables, rng = _tables("smplh", 24, 46, dev, E=8)
+    x = torch.as_tensor((rng.normal(size=(128, tables.dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    theta, trans, extra = mj.kernel_inputs(model, tables, x)
+    sm = mj.fk_smalls_plain(theta, tables, True, extra)
+    obs, w = _fold_inputs(tables, 128, rng, dev)
+    rw_k, jw_k = mj.marker_rows_fold(sm, trans, tables, obs, w, extra)
+    rw_p, jw_p = mj.marker_rows_fold_plain(sm, trans, tables, obs, w, extra)
+    sim_u, jm_u = mj.marker_rows(sm, trans, tables, True, extra)
+    assert jw_k.shape == (128, 46, 3, 125)
+    _check_fold(rw_k, jw_k, rw_p, jw_p, sim_u, jm_u, obs, w, tables.dof)
+
+
+@pytest.mark.parametrize("E", [20, 80])
+def test_marker_rows_tiled_fold_kernel_matches(dev, E):
+    """marker_rows<jac,tiled,fold> (K13) at N=128 on SMPL-X: rw and jw's
+    first 3+P columns bit for bit the unfolded kernel's times w, uv the
+    unfolded uv times w; the whole folded route's extra columns within
+    3e-4 of the largest entry of the unfolded route's times w."""
+    model, tables, rng = _tables("smplx", 24, 46, dev, E=E)
+    x = torch.as_tensor((rng.normal(size=(128, tables.dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    theta, trans, extra = mj.kernel_inputs(model, tables, x)
+    jshift, vpshift = mj.extra_shifts(tables, extra)
+    sm = mj.fk_smalls_tiled_plain(theta, jshift, tables, True)
+    obs, w = _fold_inputs(tables, 128, rng, dev)
+    rw_k, jw_k, uv_k = mj.marker_rows_tiled_fold(sm, trans, vpshift, tables,
+                                                 obs, w)
+    rw_p, jw_p, uv_p = mj.marker_rows_tiled_fold_plain(sm, trans, vpshift,
+                                                       tables, obs, w)
+    sim_u, jm_u, uv_u = mj.marker_rows_tiled(sm, trans, vpshift, tables, True)
+    Dp = tables.dof - E
+    _check_fold(rw_k, jw_k[..., :Dp], rw_p, jw_p[..., :Dp], sim_u,
+                jm_u[..., :Dp], obs, w, Dp)
+    torch.testing.assert_close(uv_k, uv_p, rtol=0,
+                               atol=3e-4 * max(float(uv_p.abs().max()), 1.0))
+    assert torch.equal(uv_k, uv_u * w[..., None])
+    rw, jw = mj.marker_resid_and_wjac(model, tables, x, obs, w)
+    sim, jm = mj.marker_sim_and_jacobian(model, tables, x)
+    torch.cuda.synchronize()
+    jw_u = jm * w[..., None, None]
+    assert torch.equal(rw, (sim - obs) * w[..., None])
+    assert torch.equal(jw[..., :Dp], jw_u[..., :Dp])
+    assert float(jw_u[..., Dp:].abs().max()) > 1e-3
+    torch.testing.assert_close(jw[..., Dp:], jw_u[..., Dp:], rtol=0,
+                               atol=3e-4 * float(jw_u.abs().max()))
+
+
+def _pcg_system(D, cond, seed, dev):
+    """A direction_test_system case masked and damped as the solver would
+    hand it to pcg_direction_batched: (g, B, plin)."""
+    g, B, plin, mask, _ = pcg.direction_test_system(128, D, cond, seed=seed,
+                                                     device=dev)
+    gm, Bm = gauss_newton._masked_system(g, B, mask)
+    Bd = gauss_newton._damp(Bm, gauss_newton.DoglegOptions(damping=1e-8))
+    return gm.contiguous(), Bd.contiguous(), (plin * mask).contiguous()
+
+
+@pytest.mark.parametrize("D,cond", [(17, 5.0), (17, 1e2), (117, 5.0),
+                                    (117, 1e2), (206, 5.0), (206, 1e2)])
+@pytest.mark.parametrize("iters", [24, 128])
+def test_pcg_kernel_matches_plain(dev, D, cond, iters):
+    """pcg_direction (K19) against the plain version in float64, within 4x
+    the float32 plain version's largest distance over the given order and
+    two permutations; at cond ~5 also elementwise against the float32 plain
+    version; ok equal to the float64 version's wherever its g.p_gn is
+    clearly negative."""
+    args = _pcg_system(D, cond, D + 1, dev)
+    p_k, ok_k = pcg.pcg_direction_batched(*args, iters)
+    orders = pcg.pcg_plain_in_orders(*args, iters)
+    p_64, ok_64 = pcg.pcg_direction_plain(*(t.double() for t in args), iters)
+    torch.cuda.synchronize()
+    e_ref = max(float((o[0].double() - p_64).abs().max()) for o in orders)
+    torch.testing.assert_close(p_k.double(), p_64, rtol=0,
+                               atol=4.0 * e_ref + 1e-6 * float(p_64.abs().max()))
+    g64 = args[0].double()
+    gp = (g64 * p_64).sum(-1)
+    clear = gp < -1e-3 * torch.linalg.vector_norm(g64, dim=-1) * \
+        torch.linalg.vector_norm(p_64, dim=-1)
+    assert bool(clear.any())
+    assert torch.equal(ok_k[clear], ok_64[clear])
+    if cond == 5.0:
+        torch.testing.assert_close(p_k, orders[0][0], rtol=2e-4, atol=1e-5)
+        assert torch.equal(ok_k, orders[0][1])
+
+
 def test_wrappers_count_and_check(dev):
     kernels.COUNTS.reset()
     model, tables, rng = _tables("smpl", 6, 5, dev)
@@ -246,3 +384,43 @@ def test_wrappers_count_and_check(dev):
     with pytest.raises(ValueError):
         mj.fk_smalls(theta.transpose(0, 1).contiguous().transpose(0, 1),
                      tables, True)
+
+
+def test_fold_and_pcg_wrappers_count_and_check(dev):
+    """The folded entry point launches fk_smalls<jac,..> and the folded
+    marker rows once each, and never the unfolded ones; the wrappers refuse
+    a strided or float64 obs or w, naming it; pcg_direction counts its
+    launch."""
+    kernels.COUNTS.reset()
+    for E, fk, rows in ((0, mj.FK_JAC, mj.ROWS_JAC_FOLD),
+                        (4, mj.FK_JAC_EXT, mj.ROWS_JAC_EXT_FOLD),
+                        (20, mj.FK_JAC_TILED, mj.ROWS_JAC_TILED_FOLD)):
+        model, tables, rng = _tables("smpl", 6, 5, dev, E=E)
+        x = torch.zeros((3, tables.dof), device=dev)
+        obs, w = _fold_inputs(tables, 3, rng, dev)
+        # strided and float64 inputs of the caller are made contiguous here
+        mj.marker_resid_and_wjac(model, tables, x, obs.transpose(0, 1)
+                                 .contiguous().transpose(0, 1), w.double())
+        assert kernels.COUNTS.launches[fk] == 1, fk
+        assert kernels.COUNTS.launches[rows] == 1, rows
+    for name in (mj.ROWS_JAC, mj.ROWS_JAC_EXT, mj.ROWS_JAC_TILED):
+        assert kernels.COUNTS.launches[name] == 0, name
+    assert sum(kernels.COUNTS.plain_cuda.values()) == 0
+    model, tables, rng = _tables("smpl", 6, 5, dev)
+    x = torch.zeros((3, tables.dof), device=dev)
+    theta, trans, _ = mj.kernel_inputs(model, tables, x)
+    sm = mj.fk_smalls(theta, tables, True)
+    obs, w = _fold_inputs(tables, 3, rng, dev)
+    strided = obs.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="obs: expected a contiguous"):
+        mj.marker_rows_fold(sm, trans, tables, strided, w)
+    with pytest.raises(ValueError, match="wrow: expected torch.float32"):
+        mj.marker_rows_fold(sm, trans, tables, obs, w.double())
+    with pytest.raises(ValueError, match="wrow: expected a contiguous"):
+        mj.marker_rows_fold(sm, trans, tables, obs,
+                            w.t().contiguous().t())
+    g, B, plin = _pcg_system(17, 5.0, 0, dev)
+    pcg.pcg_direction_batched(g, B, plin, 24)
+    assert kernels.COUNTS.launches[pcg.PCG_KERNEL] == 1
+    with pytest.raises(ValueError, match="B: expected torch.float32"):
+        pcg.pcg_direction_batched(g, B.double(), plin, 24)

@@ -3,6 +3,7 @@
 against another checkout of the port.
 
     python tools/profile_torch_slice.py [--frames 4096] [--problem dmpl|face]
+                                        [--fold]
     python tools/profile_torch_slice.py --ab OTHER_CHECKOUT [--pairs 10]
     python tools/profile_torch_slice.py --kernel-ab OTHER_CHECKOUT [--pairs 10]
 
@@ -11,13 +12,17 @@ SMPL+H, 46 markers, maxiter 100, two smoothing sweeps, fingers free), or
 with `--problem dmpl` `chip_smoke.dmpl_problem` (the same with 8 DMPL
 soft-tissue coefficients a frame), or with `--problem face`
 `chip_smoke.face_problem` (SMPL-X with 80 expressions and the jaw, the
-tiled extras route).
+tiled extras route). With `--fold` the solves run with
+`StageIIOptions(fold_weights=True)`: the folded marker rows
+`marker_rows<jac,..,fold>` in place of the unfolded ones and their weighting
+pass.
 
 Profile: two warm-up solves, one untraced timed solve, then one solve under
 torch.profiler. Prints the untraced and traced wall, the device time summed
 over kernels, the idle share of the untraced wall, the peak device memory
 and the card, and writes the per-kernel table (self device time, calls) to
-chiprun_out/profile_slice.txt (profile_<problem>.txt for the others).
+chiprun_out/profile_slice.txt (profile_<problem>.txt for the others,
+with `_fold` before the suffix for the folded slice).
 
 A/B: one worker process per checkout (this one is A, OTHER_CHECKOUT is B),
 each with its own kernels and problem; after one warm-up solve each, solves
@@ -29,7 +34,10 @@ Kernel A/B: this checkout's kernel library against OTHER_CHECKOUT's (built
 by its own `moshpp_torch.kernels`), in one process. Prints, for every
 `fk_smalls`/`marker_rows`/`dogleg_direction` instantiation the two builds
 share, whether its SASS (cuobjdump) is identical once kernel-parameter
-offsets are masked; then the device time of `marker_rows<jac>` and
+offsets are masked: instantiations pair by their template flags, a build
+with fewer flags reading the missing trailing ones as false (so a parent's
+`marker_rows<jac, ext, tiled>` pairs with `<jac, ext, tiled, fold=false>`
+and a parent's untemplated `dogleg_direction` with `<pcg=false>`); then the device time of `marker_rows<jac>` and
 `<jac,ext>` launched from each library on the same inputs (bench and DMPL
 problems), in --pairs alternating pairs. The other checkout's
 `marker_rows_launch` must take this one's arguments.
@@ -37,6 +45,7 @@ problems), in --pairs alternating pairs. The other checkout's
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -48,8 +57,9 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _setup(repo, frames, problem="bench"):
-    """Import the port from `repo` and build the problem on the card."""
+def _setup(repo, frames, problem="bench", fold=False):
+    """Import the port from `repo` and build the problem on the card; with
+    `fold` its solves fold the data weights into the marker kernel."""
     sys.path.insert(0, repo)
     import importlib.util
     import torch
@@ -61,6 +71,8 @@ def _setup(repo, frames, problem="bench"):
     torch.backends.cudnn.allow_tf32 = False
     bp = getattr(cs, f"{problem}_problem")(frames, "cuda")
     from moshpp_torch.pipeline import stageii
+    if fold:
+        bp["opts"] = dataclasses.replace(bp["opts"], fold_weights=True)
 
     def solve():
         res = stageii.mosh_stageii_solve(bp["prob"], bp["opts"], bp["obs"],
@@ -78,10 +90,10 @@ def _timed(solve):
     return time.perf_counter() - t0, res
 
 
-def profile(frames, problem):
+def profile(frames, problem, fold):
     import torch
     from torch.profiler import ProfilerActivity
-    cs, solve = _setup(REPO, frames, problem)
+    cs, solve = _setup(REPO, frames, problem, fold)
     card = cs.card_line()
     solve()
     solve()
@@ -99,14 +111,15 @@ def profile(frames, problem):
     head = (f"wall (untraced) {wall * 1e3:.1f} ms, wall (traced) "
             f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms (idle share "
             f"of the untraced wall {max(0.0, 1 - busy / (wall * 1e3)):.3f}), "
-            f"peak device memory {peak:.2f} GiB, F={frames}, {problem} problem")
+            f"peak device memory {peak:.2f} GiB, F={frames}, {problem} problem"
+            f"{', folded weights' if fold else ''}")
     lines = [head, card] + [
         f"{e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}  {e.key[:120]}"
         for e in rows]
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    name = ("profile_slice.txt" if problem == "bench"
-            else f"profile_{problem}.txt")
+    name = ("profile_slice" if problem == "bench"
+            else f"profile_{problem}") + ("_fold" if fold else "") + ".txt"
     with open(os.path.join(out, name), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines[:30]))
@@ -162,17 +175,19 @@ def ab(other, frames, pairs):
 
 
 def _sass(lib_path, cuobjdump):
-    """{(kernel, jac, ext, tiled): SASS lines with parameter offsets
-    masked} of a kernel library; a build without the tiled template
-    argument reads as tiled 0."""
+    """{(kernel, flag, flag, flag, flag): SASS lines with parameter offsets
+    masked} of a kernel library, keyed by the template flags of the mangled
+    name padded with "0" to four (`marker_rows` has jac, ext, tiled, fold;
+    `fk_smalls` the first three; `dogleg_direction` pcg)."""
     out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
                          capture_output=True, text=True, check=True).stdout
     funcs, cur = {}, None
     for line in out.splitlines():
         m = re.search(r"Function : \S*?(fk_smalls|marker_rows|dogleg_direction)"
-                      r"_kernel(?:ILb(\d)ELb(\d)E(?:Lb(\d)E)?)?", line)
+                      r"_kernel(?:I((?:Lb\dE)+)E)?", line)
         if m:
-            cur = (m.group(1), m.group(2), m.group(3), m.group(4) or "0")
+            flags = re.findall(r"Lb(\d)E", m.group(2) or "")
+            cur = (m.group(1), *(flags + ["0"] * (4 - len(flags))))
             funcs[cur] = []
         elif "Function :" in line:
             cur = None
@@ -245,6 +260,8 @@ def main():
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--problem", choices=("bench", "dmpl", "face"),
                     default="bench")
+    ap.add_argument("--fold", action="store_true",
+                    help="solve with fold_weights=True")
     ap.add_argument("--worker", metavar="CHECKOUT", help=argparse.SUPPRESS)
     a = ap.parse_args()
     import torch
@@ -257,7 +274,7 @@ def main():
     elif a.kernel_ab:
         kernel_ab(a.kernel_ab, a.pairs)
     else:
-        profile(a.frames, a.problem)
+        profile(a.frames, a.problem, a.fold)
 
 
 if __name__ == "__main__":
