@@ -165,7 +165,7 @@ PCG_KERNEL = {
 # the template flags of each kernel's mangled name, for the ptxas report
 TEMPLATE_FLAGS = {"fk_smalls": ("jac", "ext", "tiled"),
                   "marker_rows": ("jac", "ext", "tiled", "fold"),
-                  "dogleg_direction": ("pcg",)}
+                  "dogleg_direction": ("pcg", "tri")}
 
 
 def log(*a):

@@ -18,21 +18,6 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Sum of `v` over the block, returned to every thread. `red` is shared
-// scratch of at least 32 floats. Every warp folds the partials in the same
-// order, so all threads see the same bits.
-template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* red) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();                      // earlier readers of `red` are done
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nwarps = (blockDim.x + 31) >> 5;
-  return warp_sum(lane < nwarps ? red[lane] : T(0));
-}
-
 // Quaternion Rodrigues, identical to ops/rodrigues.rodrigues (incl. the
 // +eps guard). R row-major; q = (w, x, y, z, s, theta).
 __device__ __forceinline__ void rodrigues(const float v[3], float R[9],
@@ -82,6 +67,27 @@ __device__ __forceinline__ void rodrigues_grad(const float v[3],
     dR[7 * 3 + t] = 2.f * (dyz + dwx);
     dR[8 * 3 + t] = -2.f * (dxx + dyy);
   }
+}
+
+// cp.async: copies from global to shared memory that run beside the
+// block's work; a commit closes a group, wait_all waits for every group.
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Raise the dynamic shared-memory cap of `kernel` when `bytes` is above the

@@ -24,16 +24,15 @@
 // already moved the joints), and with the Jacobian each vertex gets E more
 // columns d v/dx_e = sum_j w_j datr_e[j] + T_rot dv_e, folded through the
 // same local-frame blocks as the pose columns: the jm row grows from
-// 3 x (3+P) to 3 x (3+P+E) floats. The E = 0 instantiations carry none of
-// this code, and their shared-memory layout is unchanged.
+// 3 x (3+P) to 3 x (3+P+E) floats.
 //
 // With TILED (the tiled extras route, any E) the wrapper has summed the
 // vertex shift, vpshift[f][m] = sum_e x_e dv_e (3 verts x 3), which joins
-// the float64 pose-blend sum; the program has no E loop and the E = 0
-// shared-memory layout. It writes jm's first 3+P columns of the (F, M, 3, D)
-// buffer and, with the Jacobian, the marker's chain factors
-// uv[f][m] = [U = dms (k, c, d); V = dms T_rot (k, c, z)] (54 floats), from
-// which extras_cols.cu writes the last E columns.
+// the float64 pose-blend sum; the program has no E loop. It writes jm's
+// first 3+P columns of the (F, M, 3, D) buffer and, with the Jacobian, the
+// marker's chain factors uv[f][m] = [U = dms (k, c, d); V = dms T_rot
+// (k, c, z)] (54 floats), from which extras_cols.cu writes the last E
+// columns.
 //
 // With FOLD (the stage-ii system's `fold_weights`; the Jacobian only) the
 // kernel also reads the observed markers obs (F, M, 3) and the data weights
@@ -55,20 +54,46 @@
 // two agree to the Jacobian's own float32 noise.
 //
 // What bounds it: not bytes (the jm write, F*M*3*D floats, is 264.5 MB at
-// F=4096, M=46, D=117, >= 0.08 ms) but latency: per frame the block runs
-// phases separated by barriers, some of them serial (the float64 local
-// frame on one thread, the hand-PCA dot products), so throughput comes from
-// how many blocks an SM holds to overlap them. Design: a block owns one
-// marker and a tile of frames. Per frame it stages that frame's joint
-// quantities in shared memory, reduces the pose blend with warp shuffles,
-// computes the ancestor sums per (vertex, joint) and the Jacobian per column
-// (j, t), and writes each (frame, marker) jm row of 3 x D floats with
-// consecutive threads on consecutive columns. The marker's posedirs rows
-// (9 x 459) and the hand-PCA components are read through L1, not staged:
-// that keeps shared memory near 24 KB a block so registers, not shared
-// memory, bound the blocks an SM holds (5 instead of 3 at 128 threads and
-// 96 registers). The marker's local-frame chain is folded into the columns
-// before the hand-PCA product, so that product runs on 3 rows instead of 9.
+// F=4096, M=46, D=117, >= 0.08 ms) nor operations (~84 K float32 and ~13 K
+// float64 a (frame, marker), 0.31 ms at F=4096), but latency: the work of
+// one (frame, marker) is a chain of small dependent phases. A first design
+// (one marker and one frame at a time a block, six barriers a frame, the
+// float64 local frame on one thread) spent ~8 K SM cycles a (frame, marker).
+//
+// Design: tile-at-a-time, phase-major. A block owns kTM markers and
+// kFramesPerBlock frames, walked as tiles of kTF frames x kTM markers
+// (kPairs (frame, marker) pairs). Each phase runs for the whole tile
+// before the next barrier, four barriers a tile (two without the
+// Jacobian):
+//   1. pose blend, a register-tiled float64 product (one warp a (marker,
+//      vertex): 3 posedirs rows x kTF frames a lane, posedirs through L1,
+//      featN split over the lanes and summed by shuffles); the weighted
+//      transforms T_rot, T_tr, one (pair, vertex, entry) a thread, over the
+//      vertex's nonzero skinning weights only (a list made once a block by
+//      warp ballots; a zero weight adds an exact zero, so the sum is
+//      unchanged);
+//   2. the float64 local frames, one pair a thread, side by side (EXT: the
+//      vertex columns Je from the block's far end);
+//   3. the pose columns, one (marker, joint) a thread for the tile's
+//      frames: the ancestor sums S over the vertex's nonzero weights (z on
+//      the fly), then Wrot S + s Wtr + T_rot dvp through the frame blocks;
+//      body columns are written straight to jm, hand columns kept for 4
+//      (TILED: the uv factors, EXT: the extra columns UE, from the far end);
+//   4. the hand-PCA chain, a register-tiled float32 product (3 rows of one
+//      pair x 2 components a thread, hc staged transposed once a block),
+//      the trans identity and the inline extra columns.
+// The marker tables (skinning weights, ancestor masks, hc) are staged once
+// a block; a tile's joint quantities (grot, atr, feat, extras; with the
+// Jacobian wrot, wtr, dr) once a tile with cp.async, the next tile's issued
+// right after the last phase that reads the current one (3, or 1 without
+// the Jacobian), so the copy overlaps the tile's last phase.
+// Bytes a call from L2, counted from the loops (F=4096, M=46, J=52): a
+// frame's joint quantities (75 J + featN floats, 17.4 KB) are staged once
+// a marker tile, 0.86 GB (the first design staged them once a marker,
+// 3.3 GB); a marker's posedirs rows (9 featN floats, 16.5 KB) are read
+// through L1 once a tile by the blend and once a frame by the pose
+// columns, 4.7 GB of L1 reads of which L2 serves the misses (the first
+// design: 6.2 GB of L1 reads).
 
 #include "common.cuh"
 
@@ -76,38 +101,73 @@ namespace {
 
 using namespace moshpp;
 
-constexpr int kThreads = 128;
-constexpr int kFramesPerBlock = 16;
-constexpr int kSmall = 80;   // vp 9, Trot 27, dms 27, vsh 9, cf 3 (floats)
+constexpr int kThreads = 256;
+constexpr int kTF = 2;                        // frames a tile
+constexpr int kTM = 4;                        // markers a tile (and a block)
+constexpr int kPairs = kTF * kTM;             // (frame, marker) pairs a tile
+constexpr int kTilesPerBlock = 8;
+constexpr int kFramesPerBlock = kTF * kTilesPerBlock;
 constexpr int kMaxExtra = 16;
+constexpr int kHandCols = 2;                  // hand-PCA components a thread
 
-// Offsets (in floats) of the dynamic shared-memory regions; the extras
-// regions are empty when E = 0.
+// Offsets (in floats, each region 16-byte aligned) of the dynamic
+// shared-memory regions; absent regions are empty. The float64 regions
+// come first.
+__host__ __device__ inline int take(int& o, int n) {
+  const int at = o;
+  o += (n + 3) & ~3;
+  return at;
+}
+
 struct Layout {
-  int w, s, grot, atr, feat, wrot, wtr, dr, z, S, U, small, dv, ex, datr, Je,
-      UE, total;
-  __host__ __device__ Layout(bool jac, int J, int featN, int E) {
+  int vpd, Td, w, s, vsh, cf, dv, hcT, grot, atr, feat, ex, datr, wrot, wtr,
+      dr, vp, Trot, dms, Uh, Je, UE, total;
+  __host__ __device__ Layout(bool jac, int J, int featN, int E, int nhand,
+                             int hand_dof) {
     int o = 0;
-    w = o;    o += 3 * J;
-    s = o;    o += jac ? 3 * J : 0;
-    grot = o; o += 9 * J;
-    atr = o;  o += 3 * J;
-    feat = o; o += featN;
-    wrot = o; o += jac ? 27 * J : 0;
-    wtr = o;  o += jac ? 9 * J : 0;
-    dr = o;   o += jac ? 27 * J : 0;
-    z = o;    o += jac ? 9 * J : 0;
-    S = o;    o += jac ? 9 * J : 0;
-    U = o;    o += jac ? 9 * J : 0;
-    small = o; o += kSmall;
-    dv = o;   o += 9 * E;               // [k][e][c] the marker's directions
-    ex = o;   o += E;                   // the frame's extras
-    datr = o; o += jac ? 3 * E * J : 0;  // [e][j][a]
-    Je = o;   o += jac ? 9 * E : 0;      // [e][k][a] vertex columns
-    UE = o;   o += jac ? 3 * E : 0;      // [c][e] folded marker columns
+    vpd = take(o, 2 * kPairs * 9);           // double [q][k][c]
+    Td = take(o, 2 * kPairs * 36);           // double [q][k][12]
+    // the block's markers
+    w = take(o, kTM * 3 * J);                // [mi][k][j]
+    s = take(o, jac ? kTM * 3 * J : 0);
+    vsh = take(o, kTM * 9);
+    cf = take(o, kTM * 3);
+    dv = take(o, kTM * 9 * E);               // [mi][k][e][c]
+    hcT = take(o, jac ? nhand * hand_dof : 0);   // [h][d]
+    // a tile's frames
+    grot = take(o, kTF * 9 * J);
+    atr = take(o, kTF * 3 * J);
+    feat = take(o, kTF * featN);
+    ex = take(o, kTF * E);
+    datr = take(o, jac ? kTF * 3 * E * J : 0);   // [fi][e][j][a]
+    wrot = take(o, jac ? kTF * 27 * J : 0);
+    wtr = take(o, jac ? kTF * 9 * J : 0);
+    dr = take(o, jac ? kTF * 27 * J : 0);
+    // a tile's pairs, q = fi * kTM + mi
+    vp = take(o, kPairs * 9);                // float rounding of vpd
+    Trot = take(o, kPairs * 27);             // [q][k][a][c]
+    dms = take(o, kPairs * 27);              // [q][k][c][d]
+    Uh = take(o, jac && hand_dof ? kPairs * 3 * nhand : 0);   // [q][c][h]
+    Je = take(o, jac ? kPairs * 9 * E : 0);  // [q][e][k][a]
+    UE = take(o, jac ? kPairs * 3 * E : 0);  // [q][c][e]
     total = o;
   }
 };
+
+// Queue the copy of n floats from global src to shared dst, all threads of
+// the block: 16 bytes a copy where both ends are 16-byte aligned.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) &
+       15) == 0) {
+    const int n4 = n >> 2;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      cp_async16(dst + 4 * i, src + 4 * i);
+    done = n4 << 2;
+  }
+  for (int i = done + threadIdx.x; i < n; i += blockDim.x)
+    cp_async4(dst + i, src + i);
+}
 
 // Marker position and, with the Jacobian, dms[k][c][d] = d sim_c / d v_kd
 // from the frame vertices v[k] (float64; eps-guarded normalizations).
@@ -204,8 +264,9 @@ __device__ __forceinline__ float weighted(float v, float w) {
 }
 
 template <bool WITH_JAC, bool EXT, bool TILED, bool FOLD>
-__global__ void __launch_bounds__(kThreads)
-marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
+__global__ void __launch_bounds__(kThreads, WITH_JAC ? 2 : 3)
+marker_rows_kernel(int F, int M, int J, int featN, int body_dof,
+                   int hand_dof, int D,
                    const float* __restrict__ grot,
                    const float* __restrict__ atr,
                    const float* __restrict__ feat,
@@ -229,135 +290,189 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
                    const float* __restrict__ wrow) {
   static_assert(!(EXT && TILED), "one extras route at a time");
   static_assert(!FOLD || WITH_JAC, "the weights fold into the Jacobian rows");
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   __shared__ unsigned long long s_anc[64];
-  __shared__ double s_vpd[9];    // [k][c] posed rest position, float64
-  __shared__ double s_Td[36];    // [k][12]: T_rot (9) then T_tr (3), float64
+  __shared__ unsigned char s_nzj[kTM * 3][64];   // nonzero-weight joints
+  __shared__ int s_nzc[kTM * 3];
   const int J3 = 3 * J;
   const int nhand = J3 - body_dof;   // full-pose hand columns
-  const Layout L(WITH_JAC, J, featN, EXT ? E : 0);
+  const int Ex = EXT ? E : 0;
+  const Layout L(WITH_JAC, J, featN, Ex, nhand, hand_dof);
+  double* s_vpd = reinterpret_cast<double*>(smem + L.vpd);
+  double* s_Td = reinterpret_cast<double*>(smem + L.Td);
   float* s_w = smem + L.w;
   float* s_s = smem + L.s;
+  float* s_vsh = smem + L.vsh;
+  float* s_cf = smem + L.cf;
+  float* s_dv = smem + L.dv;
+  float* s_hcT = smem + L.hcT;
   float* s_grot = smem + L.grot;
   float* s_atr = smem + L.atr;
   float* s_feat = smem + L.feat;
+  float* s_ex = smem + L.ex;
+  float* s_datr = smem + L.datr;
   float* s_wrot = smem + L.wrot;
   float* s_wtr = smem + L.wtr;
   float* s_dr = smem + L.dr;
-  float* s_z = smem + L.z;     // [k][j][b]
-  float* s_S = smem + L.S;     // [k][j][b]
-  float* s_U = smem + L.U;     // [c][col]
-  float* s_vp = smem + L.small;          // [k][c], float32 rounding of s_vpd
-  float* s_Trot = s_vp + 9;              // [k][a][c], rounding of s_Td
-  float* s_dms = s_Trot + 27;            // [k][c][d]
-  float* s_vsh = s_dms + 27;             // [k][c]
-  float* s_cf = s_vsh + 9;               // [3]
-  float* s_dv = smem + L.dv;
-  float* s_ex = smem + L.ex;
-  float* s_datr = smem + L.datr;
+  float* s_vp = smem + L.vp;
+  float* s_Trot = smem + L.Trot;
+  float* s_dms = smem + L.dms;
+  float* s_Uh = smem + L.Uh;
   float* s_Je = smem + L.Je;
   float* s_UE = smem + L.UE;
 
-  const int m = blockIdx.y;
-  const float* pd = pd3 + static_cast<size_t>(m) * 9 * featN;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
-
-  // ---- the marker's tables, once per block ---------------------------------
-  for (int i = tid; i < J3; i += blockDim.x) {
-    s_w[i] = w3[static_cast<size_t>(m) * J3 + i];
-    if (WITH_JAC) s_s[i] = s3[static_cast<size_t>(m) * J3 + i];
-  }
-  if (WITH_JAC) {
-    for (int i = tid; i < J; i += blockDim.x) s_anc[i] = ancmask[i];
-  }
-  if (tid < 9) s_vsh[tid] = vsh3[m * 9 + tid];
-  if (tid < 3) s_cf[tid] = cf[m * 3 + tid];
-  if constexpr (EXT) {
-    for (int i = tid; i < 9 * E; i += blockDim.x)
-      s_dv[i] = dv[static_cast<size_t>(m) * 9 * E + i];
-  }
-
+  const int m0 = static_cast<int>(blockIdx.y) * kTM;
+  const int nm = min(kTM, M - m0);
   const int f_begin = static_cast<int>(blockIdx.x) * kFramesPerBlock;
   const int f_end = min(F, f_begin + kFramesPerBlock);
-  for (int f = f_begin; f < f_end; ++f) {
-    // ---- stage the frame's joint quantities --------------------------------
-    __syncthreads();
-    const size_t fJ = static_cast<size_t>(f) * J;
-    for (int i = tid; i < 9 * J; i += blockDim.x) s_grot[i] = grot[fJ * 9 + i];
-    for (int i = tid; i < J3; i += blockDim.x) s_atr[i] = atr[fJ * 3 + i];
-    for (int i = tid; i < featN; i += blockDim.x)
-      s_feat[i] = feat[static_cast<size_t>(f) * featN + i];
-    if (WITH_JAC) {
-      for (int i = tid; i < 27 * J; i += blockDim.x) {
-        s_wrot[i] = wrot[fJ * 27 + i];
-        s_dr[i] = dr[fJ * 27 + i];
-      }
-      for (int i = tid; i < 9 * J; i += blockDim.x) s_wtr[i] = wtr[fJ * 9 + i];
-    }
+
+  // a tile's joint quantities, queued as one cp.async group
+  auto load_tile = [&](int f0) {
+    const int nf = min(kTF, f_end - f0);
+    const size_t fJ = static_cast<size_t>(f0) * J;
+    stage(s_grot, grot + fJ * 9, nf * 9 * J);
+    stage(s_atr, atr + fJ * 3, nf * 3 * J);
+    stage(s_feat, feat + static_cast<size_t>(f0) * featN, nf * featN);
     if constexpr (EXT) {
-      for (int i = tid; i < E; i += blockDim.x)
-        s_ex[i] = extra[static_cast<size_t>(f) * E + i];
-      if (WITH_JAC) {
-        for (int i = tid; i < 3 * E * J; i += blockDim.x)
-          s_datr[i] = datr[fJ * 3 * E + i];
-      }
+      stage(s_ex, extra + static_cast<size_t>(f0) * E, nf * E);
+      if (WITH_JAC) stage(s_datr, datr + fJ * 3 * E, nf * 3 * E * J);
     }
+    if constexpr (WITH_JAC) {
+      stage(s_wrot, wrot + fJ * 27, nf * 27 * J);
+      stage(s_wtr, wtr + fJ * 9, nf * 9 * J);
+      stage(s_dr, dr + fJ * 27, nf * 27 * J);
+    }
+    cp_async_commit();
+  };
+
+  // ---- the block's markers, once ---------------------------------------------
+  const size_t mJ3 = static_cast<size_t>(m0) * J3;
+  stage(s_w, w3 + mJ3, nm * J3);
+  if (WITH_JAC) stage(s_s, s3 + mJ3, nm * J3);
+  stage(s_vsh, vsh3 + static_cast<size_t>(m0) * 9, nm * 9);
+  stage(s_cf, cf + static_cast<size_t>(m0) * 3, nm * 3);
+  if constexpr (EXT) stage(s_dv, dv + static_cast<size_t>(m0) * 9 * E, nm * 9 * E);
+  if (WITH_JAC) {
+    for (int i = tid; i < J; i += blockDim.x) s_anc[i] = ancmask[i];
+    for (int i = tid; i < nhand * hand_dof; i += blockDim.x) {
+      const int h = i / hand_dof, d = i % hand_dof;
+      s_hcT[i] = hc[d * nhand + h];
+    }
+  }
+  // each vertex's nonzero skinning weights, in joint order
+  for (int r = warp; r < nm * 3; r += nwarps) {
+    const float* wr = w3 + mJ3 + static_cast<size_t>(r) * J;
+    int cnt = 0;
+    for (int jb = 0; jb < J; jb += 32) {
+      const int j = jb + lane;
+      const bool nz = j < J && wr[j] != 0.f;
+      const unsigned b = __ballot_sync(0xffffffffu, nz);
+      if (nz) s_nzj[r][cnt + __popc(b & ((1u << lane) - 1u))] =
+          static_cast<unsigned char>(j);
+      cnt += __popc(b);
+    }
+    if (lane == 0) s_nzc[r] = cnt;
+  }
+  load_tile(f_begin);
+
+  for (int f0 = f_begin; f0 < f_end; f0 += kTF) {
+    const int nf = min(kTF, f_end - f0);
+    const int npairs = nf * kTM;
+    cp_async_wait_all();
     __syncthreads();
 
-    // ---- pose blend vp[k][c] and the weighted transforms T_rot, T_tr --------
-    for (int r = warp; r < 9; r += nwarps) {
-      double acc = 0.0;
-      for (int p = lane; p < featN; p += 32)
-        acc += static_cast<double>(pd[r * featN + p]) * s_feat[p];
-      acc = warp_sum(acc);
-      if (lane == 0) {
-        if constexpr (EXT) {
-          // the frame's extras move the rest position: sum_e x_e dv_e
-          const int k = r / 3, c = r % 3;
-          for (int e = 0; e < E; ++e)
-            acc += static_cast<double>(s_ex[e]) * s_dv[(k * E + e) * 3 + c];
+    // ---- 1. pose blend vp[q][k][c] and the weighted transforms T_rot, T_tr -
+    // one warp a (marker, vertex): 3 posedirs rows x kTF frames a lane
+    for (int g = warp; g < nm * 3; g += nwarps) {
+      const int mi = g / 3, k = g % 3;
+      const float* pdr = pd3 + (static_cast<size_t>(m0 + mi) * 9 + k * 3) * featN;
+      double acc[3][kTF];
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int fi = 0; fi < kTF; ++fi) acc[c][fi] = 0.0;
+      for (int p = lane; p < featN; p += 32) {
+        const double a0 = __ldg(pdr + p);
+        const double a1 = __ldg(pdr + featN + p);
+        const double a2 = __ldg(pdr + 2 * featN + p);
+#pragma unroll
+        for (int fi = 0; fi < kTF; ++fi) {
+          const double fv = s_feat[fi * featN + p];
+          acc[0][fi] += a0 * fv;
+          acc[1][fi] += a1 * fv;
+          acc[2][fi] += a2 * fv;
         }
-        if constexpr (TILED)
-          acc += static_cast<double>(
-              vpshift[(static_cast<size_t>(f) * M + m) * 9 + r]);
-        s_vpd[r] = s_vsh[r] + acc;
-        s_vp[r] = static_cast<float>(s_vsh[r] + acc);
       }
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int fi = 0; fi < kTF; ++fi) acc[c][fi] = warp_sum(acc[c][fi]);
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+#pragma unroll
+        for (int fi = 0; fi < kTF; ++fi) {
+          if (lane != c * kTF + fi || fi >= nf) continue;
+          const int f = f0 + fi, q = fi * kTM + mi, r = k * 3 + c;
+          double a = acc[c][fi];
+          if constexpr (EXT) {
+            // the frame's extras move the rest position: sum_e x_e dv_e
+            for (int e = 0; e < E; ++e)
+              a += static_cast<double>(s_ex[fi * E + e]) *
+                   s_dv[((mi * 3 + k) * E + e) * 3 + c];
+          }
+          if constexpr (TILED)
+            a += static_cast<double>(
+                vpshift[(static_cast<size_t>(f) * M + m0 + mi) * 9 + r]);
+          s_vpd[q * 9 + r] = s_vsh[mi * 9 + r] + a;
+          s_vp[q * 9 + r] = static_cast<float>(s_vsh[mi * 9 + r] + a);
+        }
     }
-    if (tid < 36) {
-      const int k = tid / 12, e = tid % 12;
+    // T_rot (9) and T_tr (3) of each (pair, vertex), float64
+    for (int it = tid; it < kPairs * 36; it += blockDim.x) {
+      const int q = it / 36, k = (it / 12) % 3, e = it % 12;
+      const int fi = q / kTM, mi = q % kTM;
+      if (fi >= nf || mi >= nm) continue;
+      const int r = mi * 3 + k;
+      const float* wk = s_w + r * J;
       double acc = 0.0;
-      if (e < 9) {
-        for (int j = 0; j < J; ++j)
-          acc += static_cast<double>(s_w[k * J + j]) * s_grot[j * 9 + e];
-        s_Trot[k * 9 + e] = static_cast<float>(acc);
-      } else {
-        for (int j = 0; j < J; ++j)
-          acc += static_cast<double>(s_w[k * J + j]) * s_atr[j * 3 + e - 9];
+      for (int n = 0; n < s_nzc[r]; ++n) {
+        const int j = s_nzj[r][n];
+        acc += static_cast<double>(wk[j]) *
+               (e < 9 ? s_grot[(fi * J + j) * 9 + e]
+                      : s_atr[(fi * J + j) * 3 + e - 9]);
       }
-      s_Td[k * 12 + e] = acc;
+      if (e < 9) s_Trot[q * 27 + k * 9 + e] = static_cast<float>(acc);
+      s_Td[q * 36 + k * 12 + e] = acc;
     }
     __syncthreads();
+    if (!WITH_JAC && f0 + kTF < f_end) load_tile(f0 + kTF);
 
-    // ---- marker from its frame vertices (one thread, float64) ---------------
-    if (tid == 0) {
+    // ---- 2. the markers from their frame vertices, one pair a thread -------
+    for (int q = tid; q < kPairs; q += blockDim.x) {
+      const int fi = q / kTM, mi = q % kTM;
+      if (fi >= nf || mi >= nm) continue;
+      const int f = f0 + fi;
+      const double* Td = s_Td + q * 36;
+      const double* vpd = s_vpd + q * 9;
       double v[3][3];
       for (int k = 0; k < 3; ++k)
         for (int b = 0; b < 3; ++b)
-          v[k][b] = s_Td[k * 12 + b * 3] * s_vpd[k * 3] +
-                    s_Td[k * 12 + b * 3 + 1] * s_vpd[k * 3 + 1] +
-                    s_Td[k * 12 + b * 3 + 2] * s_vpd[k * 3 + 2] +
-                    s_Td[k * 12 + 9 + b] + static_cast<double>(trans[f * 3 + b]);
+          v[k][b] = Td[k * 12 + b * 3] * vpd[k * 3] +
+                    Td[k * 12 + b * 3 + 1] * vpd[k * 3 + 1] +
+                    Td[k * 12 + b * 3 + 2] * vpd[k * 3 + 2] +
+                    Td[k * 12 + 9 + b] + static_cast<double>(trans[f * 3 + b]);
       float out[3];
-      local_frame<WITH_JAC>(v, s_cf, out, s_dms);
-      float* dst = sim + (static_cast<size_t>(f) * M + m) * 3;
+      local_frame<WITH_JAC>(v, s_cf + mi * 3, out, s_dms + q * 27);
+      const size_t fm = static_cast<size_t>(f) * M + m0 + mi;
+      float* dst = sim + fm * 3;
       if constexpr (FOLD) {
         // the weighted residual (sim - obs) w
-        const float* ob = obs + (static_cast<size_t>(f) * M + m) * 3;
-        const float w = wrow[static_cast<size_t>(f) * M + m];
+        const float* ob = obs + fm * 3;
+        const float w = wrow[fm];
         dst[0] = (out[0] - ob[0]) * w;
         dst[1] = (out[1] - ob[1]) * w;
         dst[2] = (out[2] - ob[2]) * w;
@@ -367,163 +482,225 @@ marker_rows_kernel(int F, int M, int J, int featN, int body_dof, int D,
         dst[2] = out[2];
       }
     }
-    if (!WITH_JAC) continue;
-
-    // ---- z[k][j] = A_rot[j] v_posed[k] + A_tr[j] ------------------------------
-    for (int it = tid; it < J3; it += blockDim.x) {
-      const int k = it / J, j = it % J;
-      for (int b = 0; b < 3; ++b)
-        s_z[(k * J + j) * 3 + b] = s_grot[j * 9 + b * 3] * s_vp[k * 3] +
-                                   s_grot[j * 9 + b * 3 + 1] * s_vp[k * 3 + 1] +
-                                   s_grot[j * 9 + b * 3 + 2] * s_vp[k * 3 + 2] +
-                                   s_atr[j * 3 + b];
-    }
-    if constexpr (EXT) {
-      // vertex columns Je[e][k][a] = sum_j w[k][j] datr[e][j][a]
-      // + sum_c T_rot[k][a][c] dv[k][e][c]; counted from the last thread,
-      // so thread 0 (busy with the local frame) takes none of them
-      for (int it = blockDim.x - 1 - tid; it < 9 * E; it += blockDim.x) {
-        const int e = it / 9, k = (it / 3) % 3, a = it % 3;
+    if constexpr (EXT && WITH_JAC) {
+      // vertex columns Je[q][e][k][a] = sum_j w[k][j] datr[e][j][a]
+      // + sum_c T_rot[k][a][c] dv[k][e][c], from the block's far end
+      for (int it = blockDim.x - 1 - tid; it < npairs * 9 * E;
+           it += blockDim.x) {
+        const int q = it / (9 * E), rem = it % (9 * E);
+        const int e = rem / 9, k = (rem / 3) % 3, a = rem % 3;
+        const int fi = q / kTM, mi = q % kTM;
+        if (mi >= nm) continue;
+        const int r = mi * 3 + k;
         float acc = 0.f;
-        for (int j = 0; j < J; ++j)
-          acc = fmaf(s_w[k * J + j], s_datr[(e * J + j) * 3 + a], acc);
-        const float* Tr = s_Trot + k * 9 + a * 3;
-        const float* dk = s_dv + (k * E + e) * 3;
-        s_Je[it] = acc + Tr[0] * dk[0] + Tr[1] * dk[1] + Tr[2] * dk[2];
-      }
-    }
-    __syncthreads();
-
-    // ---- S[k][j] = sum over joints j' below j of w[k][j'] z[k][j'] -----------
-    for (int it = tid; it < J3; it += blockDim.x) {
-      const int k = it / J, j = it % J;
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-      for (int jp = 0; jp < J; ++jp) {
-        const float wk = s_w[k * J + jp];
-        if (wk != 0.f && ((s_anc[jp] >> j) & 1ull)) {
-          const float* zz = s_z + (k * J + jp) * 3;
-          a0 += wk * zz[0];
-          a1 += wk * zz[1];
-          a2 += wk * zz[2];
+        for (int n = 0; n < s_nzc[r]; ++n) {
+          const int j = s_nzj[r][n];
+          acc = fmaf(s_w[r * J + j], s_datr[((fi * E + e) * J + j) * 3 + a], acc);
         }
-      }
-      s_S[(k * J + j) * 3] = a0;
-      s_S[(k * J + j) * 3 + 1] = a1;
-      s_S[(k * J + j) * 3 + 2] = a2;
-    }
-    if constexpr (TILED) {
-      // the chain factors for extras_cols: U[k][c][d] = dms, then
-      // V[k][c][z] = sum_d dms[k][c][d] T_rot[k][d][z]; counted from the
-      // block's end, where the S sweep leaves threads idle; FOLD weights
-      // them, so that extras_cols writes weighted columns
-      float* dst = uv + (static_cast<size_t>(f) * M + m) * 54;
-      const float w = weight<FOLD>(wrow, static_cast<size_t>(f) * M + m);
-      for (int it = blockDim.x - 1 - tid; it < 54; it += blockDim.x) {
-        if (it < 27) {
-          dst[it] = weighted<FOLD>(s_dms[it], w);
-        } else {
-          const int k = (it - 27) / 9, c = ((it - 27) / 3) % 3, z = it % 3;
-          const float* dk = s_dms + k * 9 + c * 3;
-          const float* Tk = s_Trot + k * 9;
-          dst[it] = weighted<FOLD>(dk[0] * Tk[z] + dk[1] * Tk[3 + z] + dk[2] * Tk[6 + z], w);
-        }
+        const float* Tr = s_Trot + q * 27 + k * 9 + a * 3;
+        const float* dk = s_dv + ((mi * 3 + k) * E + e) * 3;
+        s_Je[q * 9 * E + rem] = acc + Tr[0] * dk[0] + Tr[1] * dk[1] + Tr[2] * dk[2];
       }
     }
-    __syncthreads();
+    if constexpr (WITH_JAC) {
+      __syncthreads();
 
-    // ---- full-pose columns (j, t), folded through the marker frame ----------
-    for (int col = tid; col < J3; col += blockDim.x) {
-      const int j = col / 3, t = col % 3;
-      float U0 = 0.f, U1 = 0.f, U2 = 0.f;
-      for (int k = 0; k < 3; ++k) {
-        const float* Sk = s_S + (k * J + j) * 3;
-        const float sk = s_s[k * J + j];
-        float Jf[3];
-        for (int a = 0; a < 3; ++a)
-          Jf[a] = s_wrot[j * 27 + (a * 3 + 0) * 3 + t] * Sk[0] +
-                  s_wrot[j * 27 + (a * 3 + 1) * 3 + t] * Sk[1] +
-                  s_wrot[j * 27 + (a * 3 + 2) * 3 + t] * Sk[2] +
-                  sk * s_wtr[j * 9 + a * 3 + t];
-        if (j >= 1 && featN > 0) {
-          float dvp[3];
-          for (int c = 0; c < 3; ++c) {
-            const float* pdr = pd + (k * 3 + c) * featN + (j - 1) * 9;
-            float acc = 0.f;
-            for (int ab = 0; ab < 9; ++ab) acc += pdr[ab] * s_dr[j * 27 + ab * 3 + t];
-            dvp[c] = acc;
+      // ---- 3. full-pose columns, one (marker, joint) a thread -----------------
+      for (int it = tid; it < nm * J; it += blockDim.x) {
+        const int mi = it / J, j = it % J;
+        const int m = m0 + mi;
+        const unsigned long long jbit = 1ull << j;
+        for (int fi = 0; fi < nf; ++fi) {
+          const int q = fi * kTM + mi;
+          const float* g = s_grot + fi * 9 * J;
+          const float* at = s_atr + fi * 3 * J;
+          const float* wr = s_wrot + (fi * J + j) * 27;
+          const float* wt = s_wtr + (fi * J + j) * 9;
+          const float* drj = s_dr + (fi * J + j) * 27;
+          float U[3][3];
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+#pragma unroll
+            for (int t = 0; t < 3; ++t) U[c][t] = 0.f;
+          for (int k = 0; k < 3; ++k) {
+            // S = sum over the vertex's weighted joints below j of w z
+            const int r = mi * 3 + k;
+            const float* vk = s_vp + q * 9 + k * 3;
+            float S0 = 0.f, S1 = 0.f, S2 = 0.f;
+            for (int n = 0; n < s_nzc[r]; ++n) {
+              const int jp = s_nzj[r][n];
+              if (!(s_anc[jp] & jbit)) continue;
+              const float wk = s_w[r * J + jp];
+              const float* gj = g + jp * 9;
+              const float z0 = gj[0] * vk[0] + gj[1] * vk[1] + gj[2] * vk[2] +
+                               at[jp * 3];
+              const float z1 = gj[3] * vk[0] + gj[4] * vk[1] + gj[5] * vk[2] +
+                               at[jp * 3 + 1];
+              const float z2 = gj[6] * vk[0] + gj[7] * vk[1] + gj[8] * vk[2] +
+                               at[jp * 3 + 2];
+              S0 += wk * z0;
+              S1 += wk * z1;
+              S2 += wk * z2;
+            }
+            const float sk = s_s[r * J + j];
+            float dvp[3][3];   // [c][t]
+            const bool blend = j >= 1 && featN > 0;
+            if (blend) {
+              for (int c = 0; c < 3; ++c) {
+                const float* pdr =
+                    pd3 + (static_cast<size_t>(m) * 9 + k * 3 + c) * featN + (j - 1) * 9;
+                float pv[9];
+#pragma unroll
+                for (int ab = 0; ab < 9; ++ab) pv[ab] = __ldg(pdr + ab);
+#pragma unroll
+                for (int t = 0; t < 3; ++t) {
+                  float acc = 0.f;
+#pragma unroll
+                  for (int ab = 0; ab < 9; ++ab) acc += pv[ab] * drj[ab * 3 + t];
+                  dvp[c][t] = acc;
+                }
+              }
+            }
+            const float* Tk = s_Trot + q * 27 + k * 9;
+            const float* dk = s_dms + q * 27 + k * 9;
+#pragma unroll
+            for (int t = 0; t < 3; ++t) {
+              float Jf[3];
+#pragma unroll
+              for (int a = 0; a < 3; ++a)
+                Jf[a] = wr[(a * 3 + 0) * 3 + t] * S0 + wr[(a * 3 + 1) * 3 + t] * S1 +
+                        wr[(a * 3 + 2) * 3 + t] * S2 + sk * wt[a * 3 + t];
+              if (blend) {
+#pragma unroll
+                for (int a = 0; a < 3; ++a)
+                  Jf[a] += Tk[a * 3] * dvp[0][t] + Tk[a * 3 + 1] * dvp[1][t] +
+                           Tk[a * 3 + 2] * dvp[2][t];
+              }
+              U[0][t] += dk[0] * Jf[0] + dk[1] * Jf[1] + dk[2] * Jf[2];
+              U[1][t] += dk[3] * Jf[0] + dk[4] * Jf[1] + dk[5] * Jf[2];
+              U[2][t] += dk[6] * Jf[0] + dk[7] * Jf[1] + dk[8] * Jf[2];
+            }
           }
-          for (int a = 0; a < 3; ++a)
-            Jf[a] += s_Trot[k * 9 + a * 3] * dvp[0] +
-                     s_Trot[k * 9 + a * 3 + 1] * dvp[1] +
-                     s_Trot[k * 9 + a * 3 + 2] * dvp[2];
+          // body columns to jm, hand columns to the hand-PCA phase
+          const size_t fm = static_cast<size_t>(f0 + fi) * M + m;
+          float* row = jm + fm * 3 * D;
+          const float w = weight<FOLD>(wrow, fm);
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            const int col = 3 * j + t;
+            if (col < body_dof) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                row[c * D + 3 + col] = weighted<FOLD>(U[c][t], w);
+            } else if (hand_dof > 0) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                s_Uh[(q * 3 + c) * nhand + col - body_dof] = U[c][t];
+            }
+          }
         }
-        const float* dk = s_dms + k * 9;
-        U0 += dk[0] * Jf[0] + dk[1] * Jf[1] + dk[2] * Jf[2];
-        U1 += dk[3] * Jf[0] + dk[4] * Jf[1] + dk[5] * Jf[2];
-        U2 += dk[6] * Jf[0] + dk[7] * Jf[1] + dk[8] * Jf[2];
       }
-      s_U[col] = U0;
-      s_U[J3 + col] = U1;
-      s_U[2 * J3 + col] = U2;
-    }
-    if constexpr (EXT) {
-      // extra columns through the marker frame: UE[c][e]
-      // = sum_k sum_d dms[k][c][d] Je[e][k][d]
-      for (int it = blockDim.x - 1 - tid; it < 3 * E; it += blockDim.x) {
-        const int c = it / E, e = it % E;
-        float acc = 0.f;
-        for (int k = 0; k < 3; ++k) {
-          const float* dk = s_dms + k * 9 + c * 3;
-          const float* je = s_Je + (e * 3 + k) * 3;
-          acc += dk[0] * je[0] + dk[1] * je[1] + dk[2] * je[2];
+      if constexpr (TILED) {
+        // the chain factors for extras_cols: U[k][c][d] = dms, then
+        // V[k][c][z] = sum_d dms[k][c][d] T_rot[k][d][z]; FOLD weights them,
+        // so that extras_cols writes weighted columns
+        for (int it = blockDim.x - 1 - tid; it < npairs * 54; it += blockDim.x) {
+          const int q = it / 54, x = it % 54;
+          const int fi = q / kTM, mi = q % kTM;
+          if (mi >= nm) continue;
+          const size_t fm = static_cast<size_t>(f0 + fi) * M + m0 + mi;
+          const float w = weight<FOLD>(wrow, fm);
+          const float* dq = s_dms + q * 27;
+          float val;
+          if (x < 27) {
+            val = dq[x];
+          } else {
+            const int k = (x - 27) / 9, c = ((x - 27) / 3) % 3, z = x % 3;
+            const float* dk = dq + k * 9 + c * 3;
+            const float* Tk = s_Trot + q * 27 + k * 9;
+            val = dk[0] * Tk[z] + dk[1] * Tk[3 + z] + dk[2] * Tk[6 + z];
+          }
+          uv[fm * 54 + x] = weighted<FOLD>(val, w);
         }
-        s_UE[it] = acc;
       }
-    }
-    __syncthreads();
+      if constexpr (EXT) {
+        // extra columns through the marker frame: UE[q][c][e]
+        // = sum_k sum_d dms[k][c][d] Je[e][k][d]
+        for (int it = blockDim.x - 1 - tid; it < npairs * 3 * E; it += blockDim.x) {
+          const int q = it / (3 * E), c = (it / E) % 3, e = it % E;
+          if (q % kTM >= nm) continue;
+          float acc = 0.f;
+          for (int k = 0; k < 3; ++k) {
+            const float* dk = s_dms + q * 27 + k * 9 + c * 3;
+            const float* je = s_Je + q * 9 * E + (e * 3 + k) * 3;
+            acc += dk[0] * je[0] + dk[1] * je[1] + dk[2] * je[2];
+          }
+          s_UE[it] = acc;
+        }
+      }
+      __syncthreads();
+      if (f0 + kTF < f_end) load_tile(f0 + kTF);
 
-    // ---- jm row: trans identity, body columns, hand-PCA chain ---------------
-    // A thread owns column d of all three rows: a hand column's three dot
-    // products share each component load and run as independent chains.
-    float* row = jm + (static_cast<size_t>(f) * M + m) * 3 * D;
-    const int D_out = TILED ? D - E : D;   // TILED: extras_cols writes the rest
-    const float w = weight<FOLD>(wrow, static_cast<size_t>(f) * M + m);
-    for (int d = tid; d < D_out; d += blockDim.x) {
-      float v0, v1, v2;
-      if (d < 3) {
-        v0 = d == 0 ? 1.f : 0.f;
-        v1 = d == 1 ? 1.f : 0.f;
-        v2 = d == 2 ? 1.f : 0.f;
-      } else if (d - 3 < body_dof) {
-        v0 = s_U[d - 3];
-        v1 = s_U[J3 + d - 3];
-        v2 = s_U[2 * J3 + d - 3];
-      } else if (!EXT || d < D - E) {
-        const float* hrow = hc + (d - 3 - body_dof) * nhand;
-        const float* U0 = s_U + body_dof;
-        v0 = v1 = v2 = 0.f;
+      // ---- 4. hand-PCA chain, trans identity and inline extra columns ---------
+      // kHandCols components of the three rows of one pair a thread
+      const int ngrp = (hand_dof + kHandCols - 1) / kHandCols;
+      for (int it = tid; it < npairs * ngrp; it += blockDim.x) {
+        const int q = it / ngrp, d0 = (it % ngrp) * kHandCols;
+        const int fi = q / kTM, mi = q % kTM;
+        if (mi >= nm) continue;
+        const float* u = s_Uh + q * 3 * nhand;
+        float v[3][kHandCols];
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+#pragma unroll
+          for (int x = 0; x < kHandCols; ++x) v[c][x] = 0.f;
+        const bool two = d0 + 1 < hand_dof;
         for (int h = 0; h < nhand; ++h) {
-          const float hv = hrow[h];
-          v0 = fmaf(hv, U0[h], v0);
-          v1 = fmaf(hv, U0[J3 + h], v1);
-          v2 = fmaf(hv, U0[2 * J3 + h], v2);
+          const float* hr = s_hcT + h * hand_dof + d0;
+          const float h0 = hr[0], h1 = two ? hr[1] : 0.f;
+          const float u0 = u[h], u1 = u[nhand + h], u2 = u[2 * nhand + h];
+          v[0][0] = fmaf(h0, u0, v[0][0]);
+          v[1][0] = fmaf(h0, u1, v[1][0]);
+          v[2][0] = fmaf(h0, u2, v[2][0]);
+          v[0][1] = fmaf(h1, u0, v[0][1]);
+          v[1][1] = fmaf(h1, u1, v[1][1]);
+          v[2][1] = fmaf(h1, u2, v[2][1]);
         }
-      } else {
-        const int e = d - (D - E);
-        v0 = s_UE[e];
-        v1 = s_UE[E + e];
-        v2 = s_UE[2 * E + e];
+        const size_t fm = static_cast<size_t>(f0 + fi) * M + m0 + mi;
+        float* row = jm + fm * 3 * D + 3 + body_dof + d0;
+        const float w = weight<FOLD>(wrow, fm);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          row[c * D] = weighted<FOLD>(v[c][0], w);
+          if (two) row[c * D + 1] = weighted<FOLD>(v[c][1], w);
+        }
       }
-      row[d] = weighted<FOLD>(v0, w);
-      row[D + d] = weighted<FOLD>(v1, w);
-      row[2 * D + d] = weighted<FOLD>(v2, w);
+      // the trans identity and the inline extra columns, from the far end
+      for (int it = blockDim.x - 1 - tid; it < npairs * (3 + Ex); it += blockDim.x) {
+        const int q = it / (3 + Ex), x = it % (3 + Ex);
+        const int fi = q / kTM, mi = q % kTM;
+        if (mi >= nm) continue;
+        const size_t fm = static_cast<size_t>(f0 + fi) * M + m0 + mi;
+        float* row = jm + fm * 3 * D;
+        const float w = weight<FOLD>(wrow, fm);
+        if (x < 3) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            row[c * D + x] = weighted<FOLD>(c == x ? 1.f : 0.f, w);
+        } else {
+          const int e = x - 3;
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            row[c * D + D - Ex + e] = weighted<FOLD>(s_UE[(q * 3 + c) * Ex + e], w);
+        }
+      }
     }
   }
 }
 
 template <bool EXT, bool TILED, bool FOLD>
-cudaError_t launch(bool with_jac, dim3 grid, size_t bytes, cudaStream_t s,
-                   int F, int M, int J, int featN, int body_dof, int D,
+cudaError_t launch(bool with_jac, cudaStream_t s, int F, int M, int J,
+                   int featN, int body_dof, int hand_dof, int D,
                    const float* grot, const float* atr, const float* feat,
                    const float* wrot, const float* wtr, const float* dr,
                    const float* trans, const float* w3, const float* s3,
@@ -532,12 +709,20 @@ cudaError_t launch(bool with_jac, dim3 grid, size_t bytes, cudaStream_t s,
                    float* sim, float* jm, int E, const float* extra,
                    const float* datr, const float* dv, const float* vpshift,
                    float* uv, const float* obs, const float* wrow) {
+  // frame ranges fastest: blocks resident on one SM tend to share a marker
+  // tile, whose posedirs rows then stay in L1
+  const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock,
+                  (M + kTM - 1) / kTM);
+  const int nhand = 3 * J - body_dof;
+  const size_t bytes =
+      static_cast<size_t>(Layout(with_jac, J, featN, EXT ? E : 0, nhand,
+                                 hand_dof).total) * sizeof(float);
   cudaError_t err;
   if (with_jac) {
     err = allow_smem(marker_rows_kernel<true, EXT, TILED, FOLD>, bytes);
     if (err != cudaSuccess) return err;
     marker_rows_kernel<true, EXT, TILED, FOLD><<<grid, kThreads, bytes, s>>>(
-        F, M, J, featN, body_dof, D, grot, atr, feat, wrot, wtr, dr,
+        F, M, J, featN, body_dof, hand_dof, D, grot, atr, feat, wrot, wtr, dr,
         trans, w3, s3, vsh3, pd3, cf, ancmask, hc, sim, jm, E, extra, datr,
         dv, vpshift, uv, obs, wrow);
   } else if constexpr (FOLD) {
@@ -546,7 +731,7 @@ cudaError_t launch(bool with_jac, dim3 grid, size_t bytes, cudaStream_t s,
     err = allow_smem(marker_rows_kernel<false, EXT, TILED, false>, bytes);
     if (err != cudaSuccess) return err;
     marker_rows_kernel<false, EXT, TILED, false><<<grid, kThreads, bytes, s>>>(
-        F, M, J, featN, body_dof, D, grot, atr, feat, nullptr,
+        F, M, J, featN, body_dof, hand_dof, D, grot, atr, feat, nullptr,
         nullptr, nullptr, trans, w3, nullptr, vsh3, pd3, cf, nullptr, nullptr,
         sim, nullptr, E, extra, nullptr, dv, vpshift, nullptr, nullptr,
         nullptr);
@@ -569,21 +754,16 @@ int rows_launch(bool with_jac, int F, int M, int J, int featN, int body_dof,
       E > kMaxExtra || D != 3 + body_dof + hand_dof + E ||
       (FOLD && (obs == nullptr || wrow == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(with_jac, J, featN, E);
-  const size_t bytes = static_cast<size_t>(L.total) * sizeof(float);
-  // frame tiles fastest: blocks resident on one SM tend to share a marker,
-  // whose posedirs rows then stay in L1
-  const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      E > 0 ? launch<true, false, FOLD>(with_jac, grid, bytes, s, F, M, J,
-                                        featN, body_dof, D, grot, atr, feat,
+      E > 0 ? launch<true, false, FOLD>(with_jac, s, F, M, J, featN,
+                                        body_dof, hand_dof, D, grot, atr, feat,
                                         wrot, wtr, dr, trans, w3, s3, vsh3,
                                         pd3, cf, ancmask, hc, sim, jm, E,
                                         extra, datr, dv, nullptr, nullptr,
                                         obs, wrow)
-            : launch<false, false, FOLD>(with_jac, grid, bytes, s, F, M, J,
-                                         featN, body_dof, D, grot, atr, feat,
+            : launch<false, false, FOLD>(with_jac, s, F, M, J, featN,
+                                         body_dof, hand_dof, D, grot, atr, feat,
                                          wrot, wtr, dr, trans, w3, s3, vsh3,
                                          pd3, cf, ancmask, hc, sim, jm, 0,
                                          nullptr, nullptr, nullptr, nullptr,
@@ -607,17 +787,50 @@ int tiled_launch(bool with_jac, int F, int M, int J, int featN, int body_dof,
       D != 3 + body_dof + hand_dof + E ||
       (FOLD && (obs == nullptr || wrow == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L(with_jac, J, featN, 0);
-  const size_t bytes = static_cast<size_t>(L.total) * sizeof(float);
-  const dim3 grid((F + kFramesPerBlock - 1) / kFramesPerBlock, M);
   return static_cast<int>(launch<false, true, FOLD>(
-      with_jac, grid, bytes, static_cast<cudaStream_t>(stream), F, M, J,
-      featN, body_dof, D, grot, atr, feat, wrot, wtr, dr, trans, w3, s3, vsh3,
+      with_jac, static_cast<cudaStream_t>(stream), F, M, J, featN, body_dof,
+      hand_dof, D, grot, atr, feat, wrot, wtr, dr, trans, w3, s3, vsh3,
       pd3, cf, ancmask, hc, sim, jm, E, nullptr, nullptr, nullptr, vpshift,
       uv, obs, wrow));
 }
 
 }  // namespace
+
+// Blocks an SM of one instantiation (route 0 none, 1 inline extras, 2
+// tiled) at these widths, and its shared memory a block (dynamic and
+// static); 0 for a combination there is no kernel of.
+extern "C" int marker_rows_occupancy(int with_jac, int route, int fold,
+                                     int J, int featN, int body_dof,
+                                     int hand_dof, int E, int* smem_bytes) {
+  const void* fn = nullptr;
+  const bool jac = with_jac != 0;
+#define MOSHPP_PICK(X, T, F)                                                   \
+  if (route == (X ? 1 : T ? 2 : 0) && fold == F)                               \
+    fn = jac ? reinterpret_cast<const void*>(marker_rows_kernel<true, X, T, F>) \
+             : (F ? nullptr                                                    \
+                  : reinterpret_cast<const void*>(marker_rows_kernel<false, X, T, false>));
+  MOSHPP_PICK(false, false, false)
+  MOSHPP_PICK(true, false, false)
+  MOSHPP_PICK(false, true, false)
+  MOSHPP_PICK(false, false, true)
+  MOSHPP_PICK(true, false, true)
+  MOSHPP_PICK(false, true, true)
+#undef MOSHPP_PICK
+  cudaFuncAttributes a;
+  if (fn == nullptr || cudaFuncGetAttributes(&a, fn) != cudaSuccess) return 0;
+  const size_t bytes =
+      static_cast<size_t>(Layout(jac, J, featN, route == 1 ? E : 0,
+                                 3 * J - body_dof, hand_dof).total) * sizeof(float);
+  *smem_bytes = static_cast<int>(bytes + a.sharedSizeBytes);
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(bytes)) != cudaSuccess)
+    return 0;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                    bytes) != cudaSuccess)
+    return 0;
+  return blocks;
+}
 
 extern "C" int marker_rows_launch(
     int with_jac, int F, int M, int J, int featN, int body_dof, int hand_dof,

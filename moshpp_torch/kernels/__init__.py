@@ -156,6 +156,8 @@ _SIGNATURES = {
     "dogleg_direction_launch": [_I, _I, _I, ctypes.c_float, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P],
     "pcg_direction_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "dogleg_direction_occupancy": [_I, _I, _P, _P],
+    "marker_rows_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
     "fk_smalls_tiled_launch": [_I, _P, _P, _P, _I, _P, _P, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "marker_rows_tiled_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -21,16 +21,31 @@ from moshpp_torch.solver.gauss_newton import (DoglegOptions, _bmv, _damp,
 
 KERNEL = "dogleg_direction"
 PCG_KERNEL = "pcg_direction"
-# Both modes hold a frame's B and one vector in dynamic shared memory,
-# (D^2 + D) floats, beside 128 B of static scratch; an H100 block may have
-# 232,448 B, so D <= 240 (D=206, the SMPL-X face path: 170,568 B).
+# Both modes hold in dynamic shared memory two vectors of D floats rounded
+# up to 4 and the frame's B: whole (D^2 floats and 3 of room to align its
+# copy) where that fits a block, else as rows d = 0..D-1, row d from column
+# d & ~3 on, zero-padded to a length of 4 modulo 32 floats; beside them 768
+# B of static block-sum scratch (2 rows of 3 x 32 floats). An H100 block may
+# have 232,448 B: whole B to D=239 (D=206, the SMPL-X face path: 172,188 B),
+# the rows to D=320.
 SMEM_PER_BLOCK = 232_448
-SMEM_STATIC = 128
+SMEM_STATIC = 2 * 3 * 32 * 4
+MAX_DIRECTION_WIDTH = 320
+
+
+def _row_len(d: int, D: int) -> int:
+    """Stored floats of row d: the least length >= D - (d & ~3) that is 4
+    modulo 32."""
+    return ((D - (d & ~3) - 4 + 31) & ~31) + 4
 
 
 def direction_smem_bytes(D: int) -> int:
     """Shared memory of one direction-kernel block at width D."""
-    return (D * D + D) * 4 + SMEM_STATIC
+    vectors = 2 * ((D + 3) & ~3)
+    whole = (vectors + D * D + 3) * 4 + SMEM_STATIC
+    if whole <= SMEM_PER_BLOCK:
+        return whole
+    return (vectors + sum(_row_len(d, D) for d in range(D))) * 4 + SMEM_STATIC
 
 
 def check_direction_width(D: int) -> None:
@@ -40,7 +55,8 @@ def check_direction_width(D: int) -> None:
     if need > SMEM_PER_BLOCK:
         raise ValueError(
             f"the direction kernel at D={D} needs {need} B of shared memory a "
-            f"block; the kernel has {SMEM_PER_BLOCK} B (D <= 240)")
+            f"block; the kernel has {SMEM_PER_BLOCK} B "
+            f"(D <= {MAX_DIRECTION_WIDTH})")
 
 
 def dogleg_direction_plain(g, B, plin, mask, delta, iters: int,

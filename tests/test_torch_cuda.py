@@ -10,6 +10,7 @@ Small shapes with ragged frame counts; chip_smoke.py repeats the comparison
 at the main path's shapes.
 """
 
+import ctypes
 import os
 import sys
 
@@ -27,6 +28,8 @@ from moshpp_torch.ops.marker_transform import (marker_coeffs,  # noqa: E402
 from moshpp_torch.solver import gauss_newton, pcg  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+TOL_SIM = 2e-5
 
 
 @pytest.fixture()
@@ -198,15 +201,39 @@ def test_direction_kernel_matches_plain(dev, D, cond, iters):
     float32 plain version. At D=117, cond >= 1e2, 24 iterations have not
     converged, so p differs between 24 and 128 iterations; at D=17, 128
     iterations run far past convergence, through the breakdown guards. At
-    D=125 (the DMPL path) B takes 62.5 KB of shared memory, past the 48 KB
-    default; at D=206 (the SMPL-X face path) 170.6 KB, one block an SM."""
+    D=206 (the SMPL-X face path) B and the vectors take 172,188 B of shared
+    memory, past the 48 KB default: one block an SM."""
+    _check_direction(dev, D, cond, iters)
+
+
+@pytest.mark.parametrize("D,cond", [(32, 5.0), (32, 1e2), (33, 5.0),
+                                    (33, 1e2), (206, 5.0), (239, 1e2),
+                                    (240, 5.0), (241, 1e2),
+                                    (pcg.MAX_DIRECTION_WIDTH, 5.0),
+                                    (pcg.MAX_DIRECTION_WIDTH, 1e2)])
+@pytest.mark.parametrize("iters", [24, 128])
+def test_direction_kernel_ragged_widths(dev, D, cond, iters):
+    """The direction kernel at widths where its warps end ragged (D=32, 33),
+    at the widest D that holds the whole B (239), past it on the padded rows
+    (240, 241: 1 and 2 past a multiple of 4) and at the widest D, held as
+    test_direction_kernel_matches_plain holds it, against the float32
+    spread over three summation orders."""
+    _check_direction(dev, D, cond, iters, orders=True)
+
+
+def _check_direction(dev, D, cond, iters, orders=False):
+    """The direction test's gates; with `orders` the float32 plain version's
+    distance from float64 is the largest over the given order and two
+    permutations of the unknowns (chip_smoke.py's gate)."""
     args = pcg.direction_test_system(128, D, cond, seed=D, device=dev)
     out_k = pcg.dogleg_direction_batched(*args, iters, 1e-8)
     out_p = pcg.dogleg_direction_plain(*args, iters, 1e-8)
     out_64 = pcg.dogleg_direction_plain(*(t.double() for t in args), iters, 1e-8)
+    spread = (pcg.plain_in_orders(*args, iters, 1e-8) if orders
+              else [out_p])
     torch.cuda.synchronize()
-    for k, p, r in zip(out_k, out_p, out_64):
-        e_p = float((p.double() - r).abs().max())
+    for i, (k, r) in enumerate(zip(out_k, out_64)):
+        e_p = max(float((o[i].double() - r).abs().max()) for o in spread)
         torch.testing.assert_close(k.double(), r, rtol=0,
                                    atol=4.0 * e_p + 1e-6 * float(r.abs().max()))
     if cond == 5.0:
@@ -247,8 +274,9 @@ def _check_fold(rw_k, jw_k, rw_p, jw_p, sim_u, jm_u, obs, w, n_exact):
     jw_u = jm_u * w[..., None, None]
     assert torch.equal(jw_k[..., :n_exact], jw_u[..., :n_exact])
     zero = w == 0
-    assert float(jw_k[zero].abs().max()) == 0.0
-    assert float(rw_k[zero].abs().max()) == 0.0
+    if bool(zero.any()):
+        assert float(jw_k[zero].abs().max()) == 0.0
+        assert float(rw_k[zero].abs().max()) == 0.0
     return jw_u
 
 
@@ -320,6 +348,88 @@ def test_marker_rows_tiled_fold_kernel_matches(dev, E):
                                atol=3e-4 * float(jw_u.abs().max()))
 
 
+RAGGED_FAMILIES = [("smplh", 24), ("smpl", 6), ("mano", 6), ("smplx", 24)]
+# (M, F): marker and frame counts off the kernel's tiles (4 markers, 2
+# frames, 16 frames a block)
+RAGGED_SHAPES = [(1, 1), (7, 17), (46, 130), (47, 17), (47, 130), (1, 130)]
+
+
+@pytest.mark.parametrize("E", [0, 1, 16, 20, 80])
+@pytest.mark.parametrize("M,F", RAGGED_SHAPES)
+@pytest.mark.parametrize("family,dph", RAGGED_FAMILIES)
+def test_marker_rows_ragged_tiles(dev, family, dph, M, F, E):
+    """Every marker_rows instantiation of the route E takes (E=0: none,
+    1 and 16: inline, 20 and 80: tiled) at marker and frame counts that end
+    ragged in the kernel's tiles: <jac> and <sim> against their plain
+    versions (sim within 2e-5, jm within 3e-4 of its largest entry, uv
+    likewise), and <jac,fold> against its plain version and bit for bit
+    against the unfolded kernel's rows times w (tiled: its uv too)."""
+    model, tables, rng = _tables(family, dph, M, dev, seed=M + F, E=E)
+    x = torch.as_tensor((rng.normal(size=(F, tables.dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    theta, trans, extra = mj.kernel_inputs(model, tables, x)
+    obs, w = _fold_inputs(tables, F, rng, dev) if F > 2 else (
+        torch.as_tensor(rng.normal(size=(F, M, 3)).astype(np.float32),
+                        device=dev),
+        torch.full((F, M), 3.0, device=dev))
+    if tables.route == "tiled":
+        jshift, vpshift = mj.extra_shifts(tables, extra)
+        Dp = tables.dof - E
+        for with_jac in (True, False):
+            sm = mj.fk_smalls_tiled_plain(theta, jshift, tables, with_jac)
+            k = mj.marker_rows_tiled(sm, trans, vpshift, tables, with_jac)
+            p = mj.marker_rows_tiled_plain(sm, trans, vpshift, tables,
+                                           with_jac)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(k[0], p[0], rtol=0, atol=TOL_SIM)
+            if with_jac:
+                scale = max(float(p[1].abs().max()), 1.0)
+                torch.testing.assert_close(k[1][..., :Dp], p[1][..., :Dp],
+                                           rtol=0, atol=3e-4 * scale)
+                torch.testing.assert_close(
+                    k[2], p[2], rtol=0,
+                    atol=3e-4 * max(float(p[2].abs().max()), 1.0))
+                sim_u, jm_u, uv_u = k
+        sm = mj.fk_smalls_tiled_plain(theta, jshift, tables, True)
+        rw_k, jw_k, uv_k = mj.marker_rows_tiled_fold(sm, trans, vpshift,
+                                                     tables, obs, w)
+        rw_p, jw_p, _ = mj.marker_rows_tiled_fold_plain(sm, trans, vpshift,
+                                                        tables, obs, w)
+        _check_fold(rw_k, jw_k[..., :Dp], rw_p, jw_p[..., :Dp], sim_u,
+                    jm_u[..., :Dp], obs, w, Dp)
+        assert torch.equal(uv_k, uv_u * w[..., None])
+        return
+    for with_jac in (True, False):
+        sm = mj.fk_smalls_plain(theta, tables, with_jac, extra)
+        sim_k, jm_k = mj.marker_rows(sm, trans, tables, with_jac, extra)
+        sim_p, jm_p = mj.marker_rows_plain(sm, trans, tables, with_jac, extra)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(sim_k, sim_p, rtol=0, atol=TOL_SIM)
+        if with_jac:
+            assert jm_k.shape == (F, M, 3, tables.dof)
+            scale = max(float(jm_p.abs().max()), 1.0)
+            torch.testing.assert_close(jm_k, jm_p, rtol=0, atol=3e-4 * scale)
+            sim_u, jm_u = sim_k, jm_k
+    sm = mj.fk_smalls_plain(theta, tables, True, extra)
+    rw_k, jw_k = mj.marker_rows_fold(sm, trans, tables, obs, w, extra)
+    rw_p, jw_p = mj.marker_rows_fold_plain(sm, trans, tables, obs, w, extra)
+    _check_fold(rw_k, jw_k, rw_p, jw_p, sim_u, jm_u, obs, w, tables.dof)
+
+
+def test_marker_rows_occupancy(dev):
+    """Each marker_rows instantiation at the slices' widths (J=52/55,
+    featN=459/486) fits at least two blocks an SM."""
+    lib, _ = kernels.library()
+    smem = ctypes.c_int()
+    widths = {0: (52, 66, 0), 1: (52, 66, 8), 2: (55, 75, 80)}
+    for jac, route, fold in [(j, r, f) for j in (1, 0) for r in (0, 1, 2)
+                             for f in (0, 1) if j or not f]:
+        J, body, E = widths[route]
+        blocks = lib.marker_rows_occupancy(jac, route, fold, J, 9 * (J - 1),
+                                           body, 48, E, ctypes.byref(smem))
+        assert blocks >= 2, (jac, route, fold, blocks, smem.value)
+
+
 def _pcg_system(D, cond, seed, dev):
     """A direction_test_system case masked and damped as the solver would
     hand it to pcg_direction_batched: (g, B, plin)."""
@@ -339,6 +449,38 @@ def test_pcg_kernel_matches_plain(dev, D, cond, iters):
     two permutations; at cond ~5 also elementwise against the float32 plain
     version; ok equal to the float64 version's wherever its g.p_gn is
     clearly negative."""
+    _check_pcg(dev, D, cond, iters)
+
+
+@pytest.mark.parametrize("D,cond", [(32, 5.0), (33, 1e2), (125, 1e2),
+                                    (241, 5.0), (pcg.MAX_DIRECTION_WIDTH, 5.0),
+                                    (pcg.MAX_DIRECTION_WIDTH, 1e2)])
+@pytest.mark.parametrize("iters", [24, 128])
+def test_pcg_kernel_ragged_widths(dev, D, cond, iters):
+    """pcg_direction at ragged and the widest widths, held as
+    test_pcg_kernel_matches_plain holds it."""
+    _check_pcg(dev, D, cond, iters)
+
+
+def test_direction_shared_memory_matches_wrapper(dev):
+    """The launcher's shared memory a block (its occupancy query) is what
+    `pcg.direction_smem_bytes` counts, in both modes; it refuses one past
+    the widest D."""
+    lib, _ = kernels.library()
+    for mode in (0, 1):
+        for D in (17, 33, 117, 125, 206, 239, 240, pcg.MAX_DIRECTION_WIDTH):
+            smem, threads = ctypes.c_int(), ctypes.c_int()
+            blocks = lib.dogleg_direction_occupancy(
+                mode, D, ctypes.byref(smem), ctypes.byref(threads))
+            assert blocks >= 1, (mode, D)
+            assert smem.value == pcg.direction_smem_bytes(D), (mode, D)
+            assert threads.value % 32 == 0 and threads.value >= D
+        assert lib.dogleg_direction_occupancy(
+            mode, pcg.MAX_DIRECTION_WIDTH + 1, ctypes.byref(smem),
+            ctypes.byref(threads)) == 0
+
+
+def _check_pcg(dev, D, cond, iters):
     args = _pcg_system(D, cond, D + 1, dev)
     p_k, ok_k = pcg.pcg_direction_batched(*args, iters)
     orders = pcg.pcg_plain_in_orders(*args, iters)

@@ -512,12 +512,13 @@ def test_prepare_excludes_eyeballs_by_default():
 
 def test_direction_width_guard():
     """(g) the direction kernel holds B in one block's shared memory: the
-    wrapper raises for D=241, naming the bytes, on every device; D=240
-    runs."""
-    assert pcg.direction_smem_bytes(240) <= pcg.SMEM_PER_BLOCK
-    args = pcg.direction_test_system(2, 241, 5.0, seed=0)
-    with pytest.raises(ValueError, match=str(pcg.direction_smem_bytes(241))):
+    wrapper raises one past its widest D (>= 240), naming the bytes, on
+    every device; the widest D runs."""
+    D = pcg.MAX_DIRECTION_WIDTH
+    assert D >= 240 and pcg.direction_smem_bytes(D) <= pcg.SMEM_PER_BLOCK
+    args = pcg.direction_test_system(2, D + 1, 5.0, seed=0)
+    with pytest.raises(ValueError, match=str(pcg.direction_smem_bytes(D + 1))):
         pcg.dogleg_direction_batched(*args, 24, 1e-8)
-    args = pcg.direction_test_system(2, 240, 5.0, seed=0)
+    args = pcg.direction_test_system(2, D, 5.0, seed=0)
     p, _, pred = pcg.dogleg_direction_batched(*args, 24, 1e-8)
     assert torch.isfinite(p).all() and torch.isfinite(pred).all()

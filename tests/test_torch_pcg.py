@@ -9,6 +9,9 @@ these cases sit in a file of their own, which the test run's workers take
 beside tests/test_torch_fold.py.
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -50,7 +53,42 @@ def test_pcg_matches_pallas(D, iters):
 
 def test_pcg_width_guard():
     """The PCG mode shares the direction kernel's shared-memory guard:
-    D=241 raises on every device, naming the bytes."""
-    g, B, plin = _pcg_inputs(241)
-    with pytest.raises(ValueError, match=str(pcg.direction_smem_bytes(241))):
+    one past the widest D raises on every device, naming the bytes."""
+    D = pcg.MAX_DIRECTION_WIDTH + 1
+    g, B, plin = _pcg_inputs(D)
+    with pytest.raises(ValueError, match=str(pcg.direction_smem_bytes(D))):
         pcg.pcg_direction_batched(g, B, plin, 24)
+
+
+def test_direction_smem_bytes_matches_kernel_layout():
+    """`direction_smem_bytes` counts what csrc/dogleg_direction.cu lays out:
+    the static block-sum scratch (kRedBufs x kRedSlots x 32 floats); the
+    dynamic vectors and the whole B, or past the block's limit its padded
+    rows (`dyn_floats`, `row_len`: the same expressions as `pcg`'s); and the
+    launcher's limit (kSmemPerBlock), so the widest D it admits is the
+    kernel's, and the whole B is used up to D=239."""
+    src = (pathlib.Path(pcg.__file__).parents[1] / "csrc" /
+           "dogleg_direction.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr \w+ {name} = (\d+);", src).group(1))
+    assert pcg.SMEM_STATIC == const("kRedBufs") * const("kRedSlots") * 32 * 4
+    assert pcg.SMEM_PER_BLOCK == const("kSmemPerBlock")
+    assert "__shared__ float red[kRedBufs * kRedSlots * 32];" in src
+    assert "return ((D - (d & ~3) - 4 + 31) & ~31) + 4;" in src
+    assert "size_t n = 2 * static_cast<size_t>((D + 3) & ~3);" in src
+    assert "if (!tri) return n + static_cast<size_t>(D) * D + 3;" in src
+    assert "for (int d = 0; d < D; ++d) n += row_len(d, D);" in src
+    for D in (1, 17, 117, 206, 239):
+        assert pcg.direction_smem_bytes(D) == \
+            4 * (2 * (-(-D // 4) * 4) + D * D + 3) + pcg.SMEM_STATIC
+    for D in (240, 300, 320):
+        rows = [((D - (d & ~3) - 4 + 31) // 32) * 32 + 4 for d in range(D)]
+        assert all(r % 32 == 4 and r >= D - (d & ~3)
+                   for d, r in enumerate(rows))
+        assert pcg.direction_smem_bytes(D) == \
+            4 * (sum(rows) + 2 * (-(-D // 4) * 4)) + pcg.SMEM_STATIC
+    assert pcg.direction_smem_bytes(pcg.MAX_DIRECTION_WIDTH) <= \
+        pcg.SMEM_PER_BLOCK < pcg.direction_smem_bytes(
+            pcg.MAX_DIRECTION_WIDTH + 1)
+    assert pcg.MAX_DIRECTION_WIDTH >= 240

@@ -37,10 +37,17 @@ share, whether its SASS (cuobjdump) is identical once kernel-parameter
 offsets are masked: instantiations pair by their template flags, a build
 with fewer flags reading the missing trailing ones as false (so a parent's
 `marker_rows<jac, ext, tiled>` pairs with `<jac, ext, tiled, fold=false>`
-and a parent's untemplated `dogleg_direction` with `<pcg=false>`); then the device time of `marker_rows<jac>` and
-`<jac,ext>` launched from each library on the same inputs (bench and DMPL
-problems), in --pairs alternating pairs. The other checkout's
-`marker_rows_launch` must take this one's arguments.
+and a parent's untemplated `dogleg_direction` with `<pcg=false>`). Then
+the device time (CUDA events, the stream held) of each of the nine
+`marker_rows` instantiations launched from each library on the same inputs
+at F=4096 (the bench problem for `<jac>`, `<sim>`, `<jac,fold>`; the DMPL
+problem for the `ext` three; the face problem for the `tiled` three), and
+of both direction launchers (`dogleg_direction`, `pcg_direction`) on
+`pcg.direction_test_system(4096, D, 1e2)` at D=117/125/206 with 24 and 128
+iterations, in --pairs alternating pairs (A B, B A, ...). Each line gives
+A's and B's registers and spilled bytes (their ptxas reports), and A's
+shared memory a block and blocks an SM (its occupancy queries). The other
+checkout's launchers must take this one's arguments.
 """
 
 import argparse
@@ -198,57 +205,197 @@ def _sass(lib_path, cuobjdump):
     return funcs
 
 
+def _ptxas(log):
+    """{(kernel, flag, flag, flag, flag): (registers, spill bytes)} from an
+    nvcc log's ptxas report, keyed as `_sass` keys."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for \S*?(fk_smalls|marker_rows|"
+                      r"dogleg_direction)_kernel(?:I((?:Lb\dE)+)E)?", line)
+        if m:
+            flags = re.findall(r"Lb(\d)E", m.group(2) or "")
+            cur = (m.group(1), *(flags + ["0"] * (4 - len(flags))))
+            out[cur] = [None, 0]
+        elif cur and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[cur][1] = int(st) + int(ld)
+        elif cur and "Used" in line and "registers" in line:
+            out[cur][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+            cur = None
+    return out
+
+
+# marker_rows launchers timed by --kernel-ab: (name, problem, launcher,
+# with_jac, SASS key flags)
+AB_ROWS = (("marker_rows<jac>", "bench", "marker_rows_launch", 1, "1000"),
+           ("marker_rows<sim>", "bench", "marker_rows_launch", 0, "0000"),
+           ("marker_rows<jac,fold>", "bench", "marker_rows_fold_launch", 1,
+            "1001"),
+           ("marker_rows<jac,ext>", "dmpl", "marker_rows_launch", 1, "1100"),
+           ("marker_rows<sim,ext>", "dmpl", "marker_rows_launch", 0, "0100"),
+           ("marker_rows<jac,ext,fold>", "dmpl", "marker_rows_fold_launch", 1,
+            "1101"),
+           ("marker_rows<jac,tiled>", "face", "marker_rows_tiled_launch", 1,
+            "1010"),
+           ("marker_rows<sim,tiled>", "face", "marker_rows_tiled_launch", 0,
+            "0010"),
+           ("marker_rows<jac,tiled,fold>", "face",
+            "marker_rows_tiled_fold_launch", 1, "1011"))
+
+
+def _rows_args(launcher, with_jac, tables, sm, trans, extra, vpshift, obs, w,
+               outs):
+    """The argument tuple of one marker_rows launcher, stream excluded."""
+    from moshpp_torch import kernels
+    p = kernels.ptr
+    t = tables
+    head = (t.num_joints, t.feat_n, t.body_dof, t.hand_dof, t.dof)
+    smalls = (p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr),
+              p(sm.dr), p(trans), p(t.w3), p(t.s3), p(t.vsh3), p(t.pd3),
+              p(t.cf), p(t.ancmask), p(t.hc))
+    F, M = trans.shape[0], t.num_markers
+    sim, jm, uv = outs
+    if launcher == "marker_rows_launch":
+        return (with_jac, F, M, *head, *smalls, p(sim), p(jm), t.n_extra,
+                p(extra), p(sm.datr), p(t.dv))
+    if launcher == "marker_rows_fold_launch":
+        return (F, M, *head, *smalls, p(sim), p(jm), t.n_extra, p(extra),
+                p(sm.datr), p(t.dv), p(obs), p(w))
+    if launcher == "marker_rows_tiled_launch":
+        return (with_jac, F, M, *head, t.n_extra, *smalls, p(vpshift),
+                p(sim), p(jm), p(uv))
+    return (F, M, *head, t.n_extra, *smalls, p(vpshift), p(sim), p(jm),
+            p(uv), p(obs), p(w))
+
+
+def _ab_pairs(cs, runs, pairs, n):
+    """Device ms of runs["A"] and runs["B"] in `pairs` alternating pairs,
+    timed by chip_smoke's `cuda_ms`; (A list, B list)."""
+    t = {"A": [], "B": []}
+    for i in range(pairs):
+        for side in ("AB" if i % 2 == 0 else "BA"):
+            t[side].append(cs.cuda_ms(runs[side], n=n, hold=True))
+    return t["A"], t["B"]
+
+
+def _ab_line(name, a, b, pairs, extra=""):
+    wins = sum(x < y for x, y in zip(a, b))
+    print(f"{name} device ms: A median {statistics.median(a):.4f} "
+          f"({min(a):.4f}-{max(a):.4f}), B median {statistics.median(b):.4f} "
+          f"({min(b):.4f}-{max(b):.4f}), A faster in {wins} of {pairs} pairs"
+          f"{extra}", flush=True)
+
+
 def kernel_ab(other, pairs):
     import torch
     cs, _ = _setup(REPO, 8)
     from moshpp_torch import kernels
     from moshpp_torch.ops import marker_jac as mj
+    from moshpp_torch.solver import pcg
     print(cs.card_line())
-    _, info = kernels.library()
-    other_lib = subprocess.run(
+    lib_a, info = kernels.library()
+    other_info = subprocess.run(
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-         "from moshpp_torch import kernels; print(kernels.library()[1].path)",
+         "from moshpp_torch import kernels; i = kernels.library()[1]; "
+         "print(i.path); print(i.path.parent / 'nvcc.log')",
          os.path.abspath(other)], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[-1]
+        check=True).stdout.strip().splitlines()
+    other_lib, other_log = other_info[-2], other_info[-1]
     cuobjdump = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
     mine, theirs = _sass(info.path, cuobjdump), _sass(other_lib, cuobjdump)
     for key in sorted(set(mine) & set(theirs), key=str):
         a, b = mine[key], theirs[key]
         print(f"SASS {key}: {len(a)} / {len(b)} instructions, identical with "
               f"parameter offsets masked: {a == b}")
+    res_a = _ptxas(info.log)
+    res_b = _ptxas(open(other_log).read()) if os.path.exists(other_log) else {}
     lib_b = ctypes.CDLL(other_lib)
-    lib_b.marker_rows_launch.argtypes = kernels._SIGNATURES["marker_rows_launch"]
-    lib_b.marker_rows_launch.restype = ctypes.c_int
-    lib_a = kernels.library()[0]
-    for problem, tag in (("bench", ""), ("dmpl", ",ext")):
+    for name in ("marker_rows_launch", "marker_rows_fold_launch",
+                 "marker_rows_tiled_launch", "marker_rows_tiled_fold_launch",
+                 "dogleg_direction_launch", "pcg_direction_launch"):
+        getattr(lib_b, name).argtypes = kernels._SIGNATURES[name]
+        getattr(lib_b, name).restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    I = ctypes.c_int
+    occ_a = {}
+
+    def res(key, res_side):
+        r = res_side.get(key)
+        return "n/a" if r is None else f"{r[0]} registers, {r[1]} B spilled"
+
+    for problem in ("bench", "dmpl", "face"):
         bp = getattr(cs, f"{problem}_problem")(4096, "cuda")
-        tables = bp["prob"].tables
-        theta, trans, extra = mj.kernel_inputs(bp["prob"].sub_model, tables,
+        t = bp["prob"].tables
+        theta, trans, extra = mj.kernel_inputs(bp["prob"].sub_model, t,
                                                bp["x_true"])
-        sm = mj.fk_smalls(theta, tables, True, extra)
-        sim, jm = mj.marker_rows(sm, trans, tables, True, extra)
+        F, M = trans.shape[0], t.num_markers
+        vpshift = None
+        if t.route == "tiled":
+            jshift, vpshift = mj.extra_shifts(t, extra)
+            sm_jac = mj.fk_smalls_tiled(theta, jshift, t, True)
+            sm_sim = mj.fk_smalls_tiled(theta, jshift, t, False)
+        else:
+            sm_jac = mj.fk_smalls(theta, t, True, extra)
+            sm_sim = mj.fk_smalls(theta, t, False, extra)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        obs = torch.randn((F, M, 3), device="cuda", generator=gen)
+        w = torch.rand((F, M), device="cuda", generator=gen) * 400.0
+        e = lambda *sh: torch.empty(sh, dtype=torch.float32, device="cuda")
+        outs = (e(F, M, 3), e(F, M, 3, t.dof), e(F, M, mj.UV_WIDTH))
+        route = {"": 0, "ext": 1, "tiled": 2}[t.route]
+        for name, prob, launcher, jac, flags in AB_ROWS:
+            if prob != problem:
+                continue
+            key = ("marker_rows", *flags)
+            args = _rows_args(launcher, jac, t, sm_jac if jac else sm_sim,
+                              trans, extra, vpshift, obs, w, outs)
+            fa, fb = getattr(lib_a, launcher), getattr(lib_b, launcher)
+            assert fa(*args, stream) == 0 and fb(*args, stream) == 0, name
+            smem = I()
+            blocks = lib_a.marker_rows_occupancy(
+                jac, route, int(flags[3]), t.num_joints, t.feat_n, t.body_dof,
+                t.hand_dof, t.n_extra, ctypes.byref(smem))
+            a, b = _ab_pairs(cs, {"A": lambda: fa(*args, stream),
+                                  "B": lambda: fb(*args, stream)}, pairs, 10)
+            _ab_line(name, a, b, pairs,
+                     f"; A: {res(key, res_a)}, {smem.value} B shared memory, "
+                     f"{blocks} blocks an SM; B: {res(key, res_b)}")
+        del bp, sm_jac, sm_sim, outs, obs, w
+        torch.cuda.empty_cache()
+    for D in (117, 125, 206):
+        g, B, plin, mask, delta = pcg.direction_test_system(4096, D, 1e2,
+                                                             seed=D,
+                                                             device="cuda")
         p = kernels.ptr
-        args = (1, sim.shape[0], tables.num_markers, tables.num_joints,
-                tables.feat_n, tables.body_dof, tables.hand_dof, tables.dof,
-                p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr),
-                p(sm.dr), p(trans), p(tables.w3), p(tables.s3),
-                p(tables.vsh3), p(tables.pd3), p(tables.cf),
-                p(tables.ancmask), p(tables.hc), p(sim), p(jm),
-                tables.n_extra, p(extra), p(sm.datr), p(tables.dv),
-                torch.cuda.current_stream().cuda_stream)
-        runs = {"A": lambda: lib_a.marker_rows_launch(*args),
-                "B": lambda: lib_b.marker_rows_launch(*args)}
-        t = {"A": [], "B": []}
-        for i in range(pairs):
-            for side in ("AB" if i % 2 == 0 else "BA"):
-                t[side].append(cs.cuda_ms(runs[side], n=20, hold=True))
-        wins = sum(b < a for a, b in zip(t["A"], t["B"]))
-        print(f"marker_rows<jac{tag}> device ms: A median "
-              f"{statistics.median(t['A']):.4f} ({min(t['A']):.4f}-"
-              f"{max(t['A']):.4f}), B median {statistics.median(t['B']):.4f} "
-              f"({min(t['B']):.4f}-{max(t['B']):.4f}), B faster in {wins} of "
-              f"{pairs} pairs")
-        del bp, sm, sim, jm
+        o = [torch.empty_like(g) for _ in range(2)] + [torch.empty_like(delta)]
+        ok = torch.empty(4096, dtype=torch.bool, device="cuda")
+        for mode in (0, 1):
+            smem, threads = I(), I()
+            blocks = lib_a.dogleg_direction_occupancy(mode, D, ctypes.byref(smem),
+                                                      ctypes.byref(threads))
+            key = ("dogleg_direction", str(mode), "0", "0", "0")
+            for iters in (24, 128):
+                if mode == 0:
+                    name = "dogleg_direction"
+                    args = (4096, D, iters, ctypes.c_float(1e-8), p(g), p(B),
+                            p(plin), p(mask), p(delta), p(o[0]), p(o[1]),
+                            p(o[2]))
+                    fa, fb = (lib_a.dogleg_direction_launch,
+                              lib_b.dogleg_direction_launch)
+                else:
+                    name = "pcg_direction"
+                    args = (4096, D, iters, p(g), p(B), p(plin), p(o[1]),
+                            p(ok))
+                    fa, fb = (lib_a.pcg_direction_launch,
+                              lib_b.pcg_direction_launch)
+                a, b = _ab_pairs(cs, {"A": lambda: fa(*args, stream),
+                                      "B": lambda: fb(*args, stream)},
+                                 pairs, 5)
+                _ab_line(f"{name}@D{D},{iters}it", a, b, pairs,
+                         f"; A: {res(key, res_a)}, {smem.value} B shared "
+                         f"memory, {threads.value} threads, {blocks} blocks an "
+                         f"SM; B: {res(key, res_b)}")
+        del g, B, plin, mask, delta, o
         torch.cuda.empty_cache()
 
 
