@@ -34,7 +34,9 @@ Phases, each failing loudly (exception, nonzero exit, no ok line):
      300-379, the jaw free, D=206), which takes the tiled extras route: its
      six kernels against their plain versions (q, datr and the final jm
      included) with a PyTorch library call timed beside the two that have
-     one, the direction kernel at D=206 (dogleg_direction@D206), parity at
+     one (those two also at the solve's bucket sizes F = 2048, 512, 128,
+     with their occupancy), the direction kernel at D=206
+     (dogleg_direction@D206), parity at
      F=256, and the F=4096 face slice, which also reports the expressions'
      and the jaw's RMS errors;
   2d-4d. the folded-weights path (`StageIIOptions.fold_weights`) on the
@@ -467,6 +469,43 @@ def check_marker_kernels(bp, records, phase):
         torch.cuda.empty_cache()
 
 
+# the frame counts the solve's compaction buckets launch at (F/2, F/8, F/32)
+BUCKETS = (2048, 512, 128)
+
+
+def bucket_ms(fn) -> dict:
+    """Device ms of fn(n), a kernel on the first n frames, at each of
+    BUCKETS."""
+    return {n: cuda_ms(lambda: fn(n), hold=True) for n in BUCKETS}
+
+
+def log_buckets(name, r):
+    log(f"  {name}: device ms {r['ms_device']:.4f} at F={FRAMES}, "
+        + ", ".join(f"{v:.4f} at F={n}" for n, v in
+                    r["bucket_ms_device"].items())
+        + f"; {r['blocks_per_sm']} blocks an SM, {r['smem_bytes']} B shared "
+        f"memory a block" + (f", {r['warps']} warps" if "warps" in r else ""))
+
+
+def extras_occupancy(tables, F, cols=False) -> dict:
+    """Blocks an SM, shared memory (and warps) a block of the extras_cols
+    or (at F frames) extras_tangent launch, from its occupancy export."""
+    import ctypes
+    from moshpp_torch import kernels
+    lib, _ = kernels.library()
+    smem, warps = ctypes.c_int(), ctypes.c_int()
+    J, E = tables.num_joints, tables.n_extra
+    if cols:
+        blocks = lib.extras_cols_occupancy(tables.num_markers, J, E,
+                                           tables.wnz_j.shape[-1],
+                                           ctypes.byref(smem))
+        return dict(blocks_per_sm=blocks, smem_bytes=smem.value)
+    blocks = lib.extras_tangent_occupancy(F, J, E, ctypes.byref(smem),
+                                          ctypes.byref(warps))
+    return dict(blocks_per_sm=blocks, smem_bytes=smem.value,
+                warps=warps.value)
+
+
 def rows_tables(tables, with_jac):
     """The problem tables a marker_rows call reads."""
     t = [tables.w3, tables.vsh3, tables.pd3, tables.cf]
@@ -540,8 +579,12 @@ def check_tiled_kernels(bp, records, phase):
         **timed(lambda: mj.extras_tangent(sm.q, sm.grot, tables),
                 lambda: mj.extras_tangent_plain(sm.q, sm.grot, tables)),
         library_ms=cuda_ms(lib, n=3),
-        **bound((sm.q, sm.grot, tables.dtrel, tables.djnt, tables.ancmask),
-                (datr_k,), F * E * chain))
+        **bound((sm.q, sm.grot, tables.dtrel, tables.djnt, tables.parents_t),
+                (datr_k,), F * E * chain),
+        **extras_occupancy(tables, F),
+        bucket_ms_device=bucket_ms(
+            lambda n: mj.extras_tangent(sm.q[:n], sm.grot[:n], tables)))
+    log_buckets(mj.TANGENT, records[mj.TANGENT])
     del q2, datr_p
     torch.cuda.empty_cache()
 
@@ -614,8 +657,12 @@ def check_tiled_kernels(bp, records, phase):
                 lambda: mj.extras_cols_plain(datr_k, uv_k, tables, jm_k),
                 n_plain=2),
         library_ms=cuda_ms(lib, n=2),
-        **bound((datr_k, uv_k, w3, dv), (jm_k[..., Dp:],),
-                F * E * (6 * nnz + M * 3 * 36)))
+        **bound((datr_k, uv_k, tables.wnz_j, tables.wnz_w, tables.dvt),
+                (jm_k[..., Dp:],), F * E * (6 * nnz + M * 3 * 36)),
+        **extras_occupancy(tables, F, cols=True),
+        bucket_ms_device=bucket_ms(
+            lambda n: mj.extras_cols(datr_k[:n], uv_k[:n], tables, jm_k[:n])))
+    log_buckets(mj.COLS, records[mj.COLS])
     del U, V, uvs, datr_k, uv_k
     torch.cuda.empty_cache()
 
@@ -1358,6 +1405,8 @@ def main():
         ("face problem", face_problem, PARITY_FRAMES, True),)))
     launches_face = phase_slice(fp, report, "4c",
                                 [*TILED_KERNELS, "dogleg_direction"])
+    tiled_jac = [n for n in TILED_KERNELS if "<sim" not in n]
+    assert len({launches_face[n] for n in tiled_jac}) == 1, launches_face
 
     # ---- the folded-weights path: phases 2d-4d -------------------------------
     # per problem (the face problem of phase 4c first, while it is built):
@@ -1393,6 +1442,8 @@ def main():
             f"{unfolded['peak_mem_gib']:.4f} GiB unfolded (started at "
             f"{folded['start_mem_gib']:.4f} / {unfolded['start_mem_gib']:.4f})")
         assert counts[fold] == counts[fk_jac], (fold, counts)
+        for name in extra_kernels:
+            assert counts[name] == counts[fk_jac], (name, counts)
         assert counts.get(rows, 0) == 0, (rows, counts)
         launches_fold[fold] = counts[fold]
         del p

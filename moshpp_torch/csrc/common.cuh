@@ -90,6 +90,29 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// wait for every group but the last committed one
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+constexpr size_t kSmemLimit = 232448;   // 227 KB, the most a block may use
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// The current device's SM count, queried once a device.
+inline int sm_count() {
+  static int count[16] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 16) dev = 0;
+  if (count[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    count[dev] = n > 0 ? n : 1;
+  }
+  return count[dev];
+}
+
 // Raise the dynamic shared-memory cap of `kernel` when `bytes` is above the
 // 48 KB default (Hopper allows up to 227 KB a block).
 template <typename K>

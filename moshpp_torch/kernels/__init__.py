@@ -169,7 +169,10 @@ _SIGNATURES = {
                                       _P, _P, _P, _P, _P, _P, _P,
                                       _P, _P, _P, _P, _P, _P, _P],
     "extras_tangent_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
-    "extras_cols_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "extras_tangent_occupancy": [_I, _I, _I, _P, _P],
+    "extras_cols_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P],
+    "extras_cols_occupancy": [_I, _I, _I, _I, _P],
 }
 
 

@@ -101,6 +101,10 @@ class MarkerJacTables:
     hc: Optional[torch.Tensor]  # (hand_dof, 3J - body_dof) hand-PCA components
     hands_mean: Optional[torch.Tensor]
     w3: torch.Tensor           # (M, 3, J) skinning weights of the frame verts
+    # w3's nonzero weights as lists, ascending joints, zero-padded to the
+    # largest count K (extras_cols loops over K, not J)
+    wnz_j: torch.Tensor        # (M, 3, K) int32 joint of each weight
+    wnz_w: torch.Tensor        # (M, 3, K) float32 the weight (0 as padding)
     s3: torch.Tensor           # (M, 3, J) w @ anc
     vsh3: torch.Tensor         # (M, 3, 3) shaped rest positions [m, k, c]
     pd3: torch.Tensor          # (M, 3, 3, featN) posedirs rows
@@ -112,6 +116,7 @@ class MarkerJacTables:
     djnt: torch.Tensor         # (J, E, 3) rest-joint directions
     dtrel: torch.Tensor        # (J, E, 3) parent-relative directions
     dv: torch.Tensor           # (M, 3, E, 3) frame-vertex directions [m, k, e, c]
+    dvt: torch.Tensor          # (M, 3, 3, E) the same, extra dims last
     # the same directions laid out for the tiled route's shift matmuls
     jdirs: torch.Tensor        # (E, 2 * J * 3) rows [dtrel_e; djnt_e]
     vdirs: torch.Tensor        # (E, M * 9) rows dv_e [m, k, c]
@@ -161,6 +166,9 @@ def prepare_marker_jac_tables(model: SurfaceModel,
     J = model.num_joints
     if J > MAX_JOINTS:
         raise ValueError(f"{J} joints: the marker kernels take <= {MAX_JOINTS}")
+    if any(p >= j for j, p in enumerate(parents)):
+        raise ValueError(f"parents {tuple(parents)}: the kernels' tree scans "
+                         f"need every parent before its children")
     cols = np.asarray([] if extra_cols is None else extra_cols, np.int64)
     E = len(cols)
     if E and int(cols.max()) >= model.num_shape_dirs:
@@ -194,6 +202,7 @@ def prepare_marker_jac_tables(model: SurfaceModel,
     depth = tree_depths(parents)
 
     w_i = w_eff[inst]                                          # (3M, J)
+    wnz_j, wnz_w = sparse_weights(w_i)
     pd = (model.posedirs.cpu().numpy()[inst] if has_pb
           else np.zeros((3 * M, 3, 0), np.float32))
     djnt = model.joint_shapedirs.cpu().numpy().astype(np.float64)[
@@ -218,6 +227,8 @@ def prepare_marker_jac_tables(model: SurfaceModel,
         hc=t(model.hands_components.cpu().numpy()) if hand_dof else None,
         hands_mean=t(model.hands_mean.cpu().numpy()) if hand_dof else None,
         w3=t(w_i.reshape(M, 3, J)),
+        wnz_j=t(wnz_j.reshape(M, 3, -1), torch.int32),
+        wnz_w=t(wnz_w.reshape(M, 3, -1)),
         s3=t((w_i @ anc).reshape(M, 3, J)),
         vsh3=t(v_shaped[inst].reshape(M, 3, 3)),
         pd3=t(pd.reshape(M, 3, 3, -1)),
@@ -227,10 +238,25 @@ def prepare_marker_jac_tables(model: SurfaceModel,
         djnt=t(djnt),
         dtrel=t(dtrel),
         dv=t(dv),
+        dvt=t(dv.transpose(0, 1, 3, 2)),
         jdirs=t(np.stack([dtrel, djnt]).transpose(2, 0, 1, 3).reshape(
             E, 6 * J)),
         vdirs=t(dv.transpose(2, 0, 1, 3).reshape(E, 9 * M)),
     )
+
+
+def sparse_weights(w: np.ndarray):
+    """The nonzero entries of each row of w (I, J) as lists: (joints (I, K)
+    int64, weights (I, K) float32), ascending joints, zero-padded to the
+    largest count K (at least 1)."""
+    w = np.asarray(w, np.float32)
+    nz = w != 0
+    K = max(1, int(nz.sum(1).max(initial=0)))
+    # stable sort puts each row's nonzero joints first, in ascending order
+    order = np.argsort(~nz, axis=1, kind="stable")[:, :K]
+    keep = np.take_along_axis(nz, order, 1)
+    return (np.where(keep, order, 0),
+            np.where(keep, np.take_along_axis(w, order, 1), np.float32(0)))
 
 
 # ---- fk_smalls ---------------------------------------------------------------
@@ -510,7 +536,7 @@ def extras_tangent(q: torch.Tensor, grot: torch.Tensor,
     datr = torch.empty((F, E, J, 3), dtype=torch.float32, device=q.device)
     p = kernels.ptr
     kernels.launch("extras_tangent_launch", TANGENT, F, J, E, p(q), p(grot),
-                   p(tables.dtrel), p(tables.djnt), p(tables.ancmask),
+                   p(tables.dtrel), p(tables.djnt), p(tables.parents_t),
                    p(datr))
     return datr
 
@@ -639,8 +665,9 @@ def extras_cols(datr: torch.Tensor, uv: torch.Tensor,
     kernels.check("uv", uv, (F, M, UV_WIDTH))
     kernels.check("jm", jm, (F, M, 3, D))
     p = kernels.ptr
-    kernels.launch("extras_cols_launch", COLS, F, M, J, E, D, p(datr), p(uv),
-                   p(tables.w3), p(tables.dv), p(jm))
+    kernels.launch("extras_cols_launch", COLS, F, M, J, E, D,
+                   tables.wnz_j.shape[-1], p(datr), p(uv), p(tables.wnz_j),
+                   p(tables.wnz_w), p(tables.dvt), p(jm))
     return jm
 
 

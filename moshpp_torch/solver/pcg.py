@@ -118,7 +118,7 @@ def pcg_plain_in_orders(g, B, plin, iters: int, seeds=(1, 2)):
 
 
 def direction_test_system(n: int, d: int, cond: float, *, seed: int = 0,
-                          device="cpu"):
+                          device):
     """Inputs (g, B, plin, mask, delta), float32 on `device`, on which a
     wrong direction kernel shows: CG has not converged after 24 iterations,
     so the iterates carry the recurrence, the preconditioner and the warm

@@ -430,6 +430,92 @@ def test_marker_rows_occupancy(dev):
         assert blocks >= 2, (jac, route, fold, blocks, smem.value)
 
 
+# the tiled extras kernels at ragged shapes: frame counts off the walks,
+# extra dims off the 32-wide chunks, the four families' joint counts
+EXTRAS_FAMILIES = [("mano", 6), ("smpl", 6), ("smplh", 24), ("smplx", 24)]
+EXTRAS_E = [17, 20, 33, 80, 100]
+EXTRAS_F = [1, 17, 130, 2048]
+
+
+@pytest.mark.parametrize("F", EXTRAS_F)
+@pytest.mark.parametrize("E", EXTRAS_E)
+@pytest.mark.parametrize("family,dph", EXTRAS_FAMILIES)
+def test_extras_tangent_ragged(dev, family, dph, E, F):
+    """extras_tangent against its plain version on unrelated random q and
+    grot (the contract, not only fk_smalls' consistent pair), within 2e-5
+    of the largest |datr| (at least 1)."""
+    model, tables, rng = _tables(family, dph, 7, dev, seed=E + F, E=E)
+    J = tables.num_joints
+    q = torch.as_tensor(rng.normal(size=(F, J, 3, 3)).astype(np.float32),
+                        device=dev)
+    grot = torch.as_tensor(rng.normal(size=(F, J, 3, 3)).astype(np.float32),
+                           device=dev)
+    datr_k = mj.extras_tangent(q, grot, tables)
+    datr_p = mj.extras_tangent_plain(q, grot, tables)
+    torch.cuda.synchronize()
+    assert datr_k.shape == (F, E, J, 3)
+    scale = max(float(datr_p.abs().max()), 1.0)
+    torch.testing.assert_close(datr_k, datr_p, rtol=0, atol=2e-5 * scale)
+
+
+@pytest.mark.parametrize("E", EXTRAS_E)
+@pytest.mark.parametrize("M", [1, 7, 46, 47])
+@pytest.mark.parametrize("family,dph", EXTRAS_FAMILIES)
+def test_extras_cols_ragged(dev, family, dph, M, E):
+    """extras_cols against its plain version at F = 1, 17, 130, 2048, within
+    3e-4 of the largest |jm| (at least 1), on unweighted and on weighted
+    (the folded route's) uv; jm's first D - E columns, a sentinel, stay bit
+    for bit and every extra column is written."""
+    model, tables, rng = _tables(family, dph, M, dev, seed=M + E, E=E)
+    J, D = tables.num_joints, tables.dof
+    Dp = D - E
+    for F in EXTRAS_F:
+        datr = torch.as_tensor(rng.normal(size=(F, E, J, 3))
+                               .astype(np.float32) * 0.1, device=dev)
+        uv = torch.as_tensor(rng.normal(size=(F, M, mj.UV_WIDTH))
+                             .astype(np.float32), device=dev)
+        w = torch.as_tensor(rng.uniform(0, 400, size=(F, M))
+                            .astype(np.float32), device=dev)
+        for u in (uv, (uv * w[..., None]).contiguous()):
+            jm = torch.full((F, M, 3, D), 1234.5, device=dev)
+            jm[..., Dp:] = float("nan")
+            out = mj.extras_cols(datr, u, tables, jm)
+            ref = mj.extras_cols_plain(datr, u, tables, jm.clone())
+            torch.cuda.synchronize()
+            assert out is jm
+            assert torch.equal(jm[..., :Dp],
+                               torch.full_like(jm[..., :Dp], 1234.5))
+            assert torch.isfinite(jm[..., Dp:]).all()
+            scale = max(float(ref.abs().max()), 1.0)
+            torch.testing.assert_close(jm, ref, rtol=0, atol=3e-4 * scale)
+
+
+def test_extras_occupancy(dev):
+    """Both extras kernels fit the face slice's widths (J=55, E=80, M=46,
+    K=2 weights a vertex) and the widest they take (J=64, E=100, M=47,
+    K=64): extras_tangent at F=4096 with 8 warps a block, fewer at F=128;
+    extras_cols one block of 16 warps an SM, even where 64-joint weight
+    lists force more extra-dim chunks (J=64, E=96, K=64)."""
+    lib, _ = kernels.library()
+    smem, warps = ctypes.c_int(), ctypes.c_int()
+    assert lib.extras_tangent_occupancy(4096, 55, 80, ctypes.byref(smem),
+                                        ctypes.byref(warps)) >= 1
+    assert warps.value == 8 and smem.value <= 232448, (warps, smem)
+    assert lib.extras_tangent_occupancy(128, 55, 80, ctypes.byref(smem),
+                                        ctypes.byref(warps)) >= 1
+    assert 1 <= warps.value < 8
+    assert lib.extras_tangent_occupancy(4096, 64, 100, ctypes.byref(smem),
+                                        ctypes.byref(warps)) >= 1
+    assert lib.extras_tangent_occupancy(4096, 65, 80, ctypes.byref(smem),
+                                        ctypes.byref(warps)) == 0
+    assert lib.extras_cols_occupancy(46, 55, 80, 2, ctypes.byref(smem)) >= 1
+    assert smem.value <= 232448
+    for M, J, E, K in ((47, 64, 100, 64), (47, 64, 96, 64)):
+        assert lib.extras_cols_occupancy(M, J, E, K, ctypes.byref(smem)) >= 1
+        assert smem.value <= 232448, (M, J, E, K, smem)
+    assert lib.extras_cols_occupancy(46, 55, 80, 0, ctypes.byref(smem)) == 0
+
+
 def _pcg_system(D, cond, seed, dev):
     """A direction_test_system case masked and damped as the solver would
     hand it to pcg_direction_batched: (g, B, plin)."""
@@ -519,6 +605,29 @@ def test_wrappers_count_and_check(dev):
     for name in (mj.FK_JAC_TILED, mj.TANGENT, mj.ROWS_JAC_TILED, mj.COLS,
                  mj.FK_SIM_TILED, mj.ROWS_SIM_TILED):
         assert kernels.COUNTS.launches[name] == 1, name
+    assert sum(kernels.COUNTS.plain_cuda.values()) == 0
+    # the extras wrappers refuse what their kernels do not take
+    theta_t, _, extra_t = mj.kernel_inputs(
+        model_t, tables_t, torch.zeros((3, tables_t.dof), device=dev))
+    sm_t = mj.fk_smalls_tiled(theta_t, mj.extra_shifts(tables_t, extra_t)[0],
+                              tables_t, True)
+    with pytest.raises(ValueError, match="q: expected torch.float32"):
+        mj.extras_tangent(sm_t.q.double(), sm_t.grot, tables_t)
+    with pytest.raises(ValueError, match="grot: expected a contiguous"):
+        mj.extras_tangent(sm_t.q, sm_t.grot.transpose(2, 3), tables_t)
+    datr = mj.extras_tangent(sm_t.q, sm_t.grot, tables_t)
+    uv = torch.zeros((3, 5, mj.UV_WIDTH), device=dev)
+    jm = torch.zeros((3, 5, 3, tables_t.dof), device=dev)
+    with pytest.raises(ValueError, match="uv: expected a contiguous"):
+        mj.extras_cols(datr, uv.transpose(0, 1).contiguous().transpose(0, 1),
+                       tables_t, jm)
+    with pytest.raises(ValueError, match="datr: expected shape"):
+        mj.extras_cols(datr[:, :-1].contiguous(), uv, tables_t, jm)
+    with pytest.raises(ValueError, match="jm: expected torch.float32"):
+        mj.extras_cols(datr, uv, tables_t, jm.double())
+    mj.extras_cols(datr, uv, tables_t, jm)
+    assert kernels.COUNTS.launches[mj.TANGENT] == 2
+    assert kernels.COUNTS.launches[mj.COLS] == 2
     assert sum(kernels.COUNTS.plain_cuda.values()) == 0
     theta, _, _ = mj.kernel_inputs(model, tables, x)
     with pytest.raises(ValueError):

@@ -144,7 +144,8 @@ def test_direction_test_system_catches_faults(cond, iters, fault):
     version's distance from float64 in some output, the largest over the
     unknowns' given order and two permutations), while 24 and 128
     iterations give different steps."""
-    args = pcg.direction_test_system(256, 117, cond, seed=3)
+    args = pcg.direction_test_system(256, 117, cond, seed=3,
+                                     device="cpu")
     a64 = [t.double() for t in args]
     ref = dogleg_direction_batched(*a64, iters=iters, damping=1e-8)
     plain = dogleg_direction_batched(*args, iters=iters, damping=1e-8)

@@ -516,9 +516,9 @@ def test_direction_width_guard():
     every device; the widest D runs."""
     D = pcg.MAX_DIRECTION_WIDTH
     assert D >= 240 and pcg.direction_smem_bytes(D) <= pcg.SMEM_PER_BLOCK
-    args = pcg.direction_test_system(2, D + 1, 5.0, seed=0)
+    args = pcg.direction_test_system(2, D + 1, 5.0, seed=0, device="cpu")
     with pytest.raises(ValueError, match=str(pcg.direction_smem_bytes(D + 1))):
         pcg.dogleg_direction_batched(*args, 24, 1e-8)
-    args = pcg.direction_test_system(2, D, 5.0, seed=0)
+    args = pcg.direction_test_system(2, D, 5.0, seed=0, device="cpu")
     p, _, pred = pcg.dogleg_direction_batched(*args, 24, 1e-8)
     assert torch.isfinite(p).all() and torch.isfinite(pred).all()

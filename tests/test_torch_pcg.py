@@ -27,7 +27,8 @@ torch.set_num_threads(1)
 def _pcg_inputs(D: int):
     """A converging `pcg.direction_test_system` case (Jacobi-scaled cond ~5,
     8 frames) masked and damped as a caller hands it over: (g, B, plin)."""
-    g, B, plin, mask, _ = pcg.direction_test_system(8, D, 5.0, seed=D)
+    g, B, plin, mask, _ = pcg.direction_test_system(8, D, 5.0, seed=D,
+                                                    device="cpu")
     gm, Bm = gauss_newton._masked_system(g, B, mask)
     Bd = gauss_newton._damp(Bm, gauss_newton.DoglegOptions(damping=1e-8))
     return gm, Bd, plin * mask

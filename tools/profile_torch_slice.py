@@ -44,10 +44,15 @@ at F=4096 (the bench problem for `<jac>`, `<sim>`, `<jac,fold>`; the DMPL
 problem for the `ext` three; the face problem for the `tiled` three), and
 of both direction launchers (`dogleg_direction`, `pcg_direction`) on
 `pcg.direction_test_system(4096, D, 1e2)` at D=117/125/206 with 24 and 128
-iterations, in --pairs alternating pairs (A B, B A, ...). Each line gives
+iterations, in --pairs alternating pairs (A B, B A, ...); before those,
+`extras_tangent` and `extras_cols` on the face problem (E=80) at the
+solve's bucket sizes F = 4096, 2048, 512, 128 and on a 20-DMPL tiled
+problem at F=4096, each pair's outputs compared first. Each line gives
 A's and B's registers and spilled bytes (their ptxas reports), and A's
 shared memory a block and blocks an SM (its occupancy queries). The other
-checkout's launchers must take this one's arguments.
+checkout's launchers must take this one's arguments, but for the extras
+kernels, whose launchers before their redesign (a build without
+`extras_cols_occupancy`) are called in their own signatures.
 """
 
 import argparse
@@ -190,8 +195,9 @@ def _sass(lib_path, cuobjdump):
                          capture_output=True, text=True, check=True).stdout
     funcs, cur = {}, None
     for line in out.splitlines():
-        m = re.search(r"Function : \S*?(fk_smalls|marker_rows|dogleg_direction)"
-                      r"_kernel(?:I((?:Lb\dE)+)E)?", line)
+        m = re.search(r"Function : \S*?(fk_smalls|marker_rows|dogleg_direction"
+                      r"|extras_tangent|extras_cols)_kernel(?:I((?:Lb\dE)+)E)?",
+                      line)
         if m:
             flags = re.findall(r"Lb(\d)E", m.group(2) or "")
             cur = (m.group(1), *(flags + ["0"] * (4 - len(flags))))
@@ -211,7 +217,8 @@ def _ptxas(log):
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Function properties for \S*?(fk_smalls|marker_rows|"
-                      r"dogleg_direction)_kernel(?:I((?:Lb\dE)+)E)?", line)
+                      r"dogleg_direction|extras_tangent|extras_cols)_kernel"
+                      r"(?:I((?:Lb\dE)+)E)?", line)
         if m:
             flags = re.findall(r"Lb(\d)E", m.group(2) or "")
             cur = (m.group(1), *(flags + ["0"] * (4 - len(flags))))
@@ -268,6 +275,114 @@ def _rows_args(launcher, with_jac, tables, sm, trans, extra, vpshift, obs, w,
             p(uv), p(obs), p(w))
 
 
+# the tiled extras kernels' launchers before their redesign (builds without
+# `extras_cols_occupancy`): the ancestor masks in place of the parents, w3
+# in place of the sparse weight lists and their count
+_P, _I = ctypes.c_void_p, ctypes.c_int
+EXTRAS_OLD_SIGNATURES = {
+    "extras_tangent_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    "extras_cols_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+}
+
+
+def _extras_launches(lib, t, sm, datr_in, uv, datr_out, jm):
+    """(tangent, cols) zero-argument launches of one build's extras kernels
+    on these inputs, in its own signatures: a build with
+    `extras_cols_occupancy` takes this tree's (parents, the sparse weight
+    lists, dvt), one without the earlier ones (ancestor masks, w3, dv)."""
+    from moshpp_torch import kernels
+    import torch
+    new = hasattr(lib, "extras_cols_occupancy")
+    sigs = kernels._SIGNATURES if new else EXTRAS_OLD_SIGNATURES
+    for name in ("extras_tangent_launch", "extras_cols_launch"):
+        getattr(lib, name).argtypes = sigs[name]
+        getattr(lib, name).restype = ctypes.c_int
+    p = kernels.ptr
+    F = sm.q.shape[0]
+    M, J, E, D = t.num_markers, t.num_joints, t.n_extra, t.dof
+    stream = torch.cuda.current_stream().cuda_stream
+    tan = (F, J, E, p(sm.q), p(sm.grot), p(t.dtrel), p(t.djnt),
+           p(t.parents_t if new else t.ancmask), p(datr_out), stream)
+    if new:
+        cols = (F, M, J, E, D, t.wnz_j.shape[-1], p(datr_in), p(uv),
+                p(t.wnz_j), p(t.wnz_w), p(t.dvt), p(jm), stream)
+    else:
+        cols = (F, M, J, E, D, p(datr_in), p(uv), p(t.w3), p(t.dv), p(jm),
+                stream)
+    return (lambda: lib.extras_tangent_launch(*tan),
+            lambda: lib.extras_cols_launch(*cols))
+
+
+def _dmpl_tiled_problem(cs, frames):
+    """chip_smoke's DMPL problem with 20 DMPL dims, which take the tiled
+    route: 36 shape dirs (DMPLs in columns 16-35), D = 3 + 114 + 20."""
+    from moshpp_torch.pipeline.stageii import StageIIOptions
+    return cs.synthetic_problem(
+        frames, "cuda", StageIIOptions(maxiter=100, smoothing_sweeps=2,
+                                       optimize_fingers=True,
+                                       optimize_dynamics=True, num_dmpls=20),
+        num_verts=6890, dof_per_hand=24, model_seed=3, prior_components=8,
+        prior_seed=1, beta_scale=0.4, pose0_scale=0.15, num_shape_dirs=36)
+
+
+def extras_ab(cs, lib_a, lib_b, pairs, res):
+    """extras_tangent and extras_cols of the two builds in alternating
+    pairs: the face problem (E=80) at the solve's bucket sizes F = 4096,
+    2048, 512, 128 and the 20-DMPL tiled problem at F=4096, on the inputs
+    of this tree's tiled kernels; each pair's outputs compared first."""
+    import torch
+    from moshpp_torch.ops import marker_jac as mj
+    I = ctypes.c_int
+    for label, make, sizes in (
+            ("face", cs.face_problem, (4096, 2048, 512, 128)),
+            ("dmpl20", lambda F, dev: _dmpl_tiled_problem(cs, F), (4096,))):
+        bp = make(4096, "cuda")
+        t = bp["prob"].tables
+        theta, trans, extra = mj.kernel_inputs(bp["prob"].sub_model, t,
+                                               bp["x_true"])
+        jshift, vpshift = mj.extra_shifts(t, extra)
+        sm_all = mj.fk_smalls_tiled(theta, jshift, t, True)
+        _, jm_all, uv_all = mj.marker_rows_tiled(sm_all, trans, vpshift, t,
+                                                 True)
+        datr_all = mj.extras_tangent(sm_all.q, sm_all.grot, t)
+        for F in sizes:
+            sm = sm_all._replace(q=sm_all.q[:F], grot=sm_all.grot[:F])
+            datr_in, uv = datr_all[:F], uv_all[:F]
+            outs = {s: (torch.empty_like(datr_in), jm_all[:F].clone())
+                    for s in "AB"}
+            fns = {s: _extras_launches(lib, t, sm, datr_in, uv, *outs[s])
+                   for s, lib in (("A", lib_a), ("B", lib_b))}
+            for s in "AB":
+                assert fns[s][0]() == 0 and fns[s][1]() == 0, (label, F, s)
+            torch.cuda.synchronize()
+            d_datr = float((outs["A"][0] - outs["B"][0]).abs().max())
+            d_cols = float((outs["A"][1] - outs["B"][1]).abs().max())
+            smem, warps = I(), I()
+            blocks = lib_a.extras_tangent_occupancy(
+                F, t.num_joints, t.n_extra, ctypes.byref(smem),
+                ctypes.byref(warps))
+            a, b = _ab_pairs(cs, {s: fns[s][0] for s in "AB"}, pairs, 10)
+            _ab_line(f"extras_tangent@{label},F={F}", a, b, pairs,
+                     f"; |A - B| {d_datr:.3g}; A: "
+                     f"{res(('extras_tangent', '0', '0', '0', '0'), 'A')}, "
+                     f"{smem.value} B shared memory, {warps.value} warps a "
+                     f"block, {blocks} blocks an SM; B: "
+                     f"{res(('extras_tangent', '0', '0', '0', '0'), 'B')}")
+            blocks = lib_a.extras_cols_occupancy(
+                t.num_markers, t.num_joints, t.n_extra, t.wnz_j.shape[-1],
+                ctypes.byref(smem))
+            a, b = _ab_pairs(cs, {s: fns[s][1] for s in "AB"}, pairs, 10)
+            _ab_line(f"extras_cols@{label},F={F}", a, b, pairs,
+                     f"; |A - B| {d_cols:.3g}; A: "
+                     f"{res(('extras_cols', '0', '0', '0', '0'), 'A')}, "
+                     f"{smem.value} B shared memory, {blocks} blocks an "
+                     f"SM, K={t.wnz_j.shape[-1]}; B: "
+                     f"{res(('extras_cols', '0', '0', '0', '0'), 'B')}")
+            del outs, fns
+        del bp, sm_all, jm_all, uv_all, datr_all
+        torch.cuda.empty_cache()
+
+
 def _ab_pairs(cs, runs, pairs, n):
     """Device ms of runs["A"] and runs["B"] in `pairs` alternating pairs,
     timed by chip_smoke's `cuda_ms`; (A list, B list)."""
@@ -320,8 +435,12 @@ def kernel_ab(other, pairs):
     occ_a = {}
 
     def res(key, res_side):
+        if isinstance(res_side, str):
+            res_side = res_a if res_side == "A" else res_b
         r = res_side.get(key)
         return "n/a" if r is None else f"{r[0]} registers, {r[1]} B spilled"
+
+    extras_ab(cs, lib_a, lib_b, pairs, res)
 
     for problem in ("bench", "dmpl", "face"):
         bp = getattr(cs, f"{problem}_problem")(4096, "cuda")
