@@ -34,8 +34,9 @@ Phases, each failing loudly (exception, nonzero exit, no ok line):
      300-379, the jaw free, D=206), which takes the tiled extras route: its
      six kernels against their plain versions (q, datr and the final jm
      included) with a PyTorch library call timed beside the two that have
-     one (those two also at the solve's bucket sizes F = 2048, 512, 128,
-     with their occupancy), the direction kernel at D=206
+     one (those two, and every fk_smalls instantiation of phases 2-2c,
+     also at the solve's bucket sizes F = 2048, 512, 128, with their
+     occupancy), the direction kernel at D=206
      (dogleg_direction@D206), parity at
      F=256, and the F=4096 face slice, which also reports the expressions'
      and the jaw's RMS errors;
@@ -252,12 +253,13 @@ def chain_lengths(tables) -> np.ndarray:
 
 def fk_flops(tables, F, with_jac, route):
     """float32 operations of one fk_smalls call, counted from its loops
-    (an FMA is two): ~130 a (frame, joint) for Rodrigues, the tree walk,
-    A_tr and the features, ~700 more for dR and the generators; inline
-    extras 12 E more, and with the Jacobian their chain sums."""
+    (an FMA is two): ~90 a (frame, joint) for Rodrigues, A_tr and the
+    features, 72 for each product of its root path (each joint composes its
+    own), ~700 more for dR and the generators; inline extras 12 E more, and
+    with the Jacobian their chain sums."""
     J, E = tables.num_joints, tables.n_extra
-    per = 130 + (700 if with_jac else 0)
-    total = F * J * per
+    per = 90 + (700 if with_jac else 0)
+    total = F * (J * per + 72 * float(np.sum(chain_lengths(tables) - 1)))
     if route == "ext":
         total += F * J * 12 * E
         if with_jac:
@@ -417,8 +419,8 @@ def check_marker_kernels(bp, records, phase):
     F = theta.shape[0]
     log(f"phase {phase}: theta {tuple(theta.shape)}, M={tables.num_markers}, "
         f"E={tables.n_extra}, D={tables.dof}, featN={tables.feat_n}")
-    t_fk = (tables.parents_t, tables.depth_t, tables.jnts, tables.trel)
-    t_ext = (extra, tables.djnt, tables.dtrel, tables.ancmask) if extra is not None else ()
+    t_fk = (tables.ancmask, tables.jnts, tables.trel)
+    t_ext = (extra, tables.djnt, tables.dtrel) if extra is not None else ()
 
     sms = {}
     for with_jac in (True, False):
@@ -432,7 +434,11 @@ def check_marker_kernels(bp, records, phase):
                     lambda: mj.fk_smalls_plain(theta, tables, with_jac,
                                                extra)),
             **bound((theta, *t_fk, *t_ext), k,
-                    fk_flops(tables, F, with_jac, route)))
+                    fk_flops(tables, F, with_jac, route)),
+            **fk_buckets(tables, route, with_jac, lambda n: mj.fk_smalls(
+                theta[:n], tables, with_jac,
+                None if extra is None else extra[:n])))
+        log_buckets(name, records[name])
         if "datr" in errs:
             records[name]["datr_max_abs_err"] = errs["datr"]
         sms[with_jac] = k
@@ -480,11 +486,45 @@ def bucket_ms(fn) -> dict:
 
 
 def log_buckets(name, r):
+    occ = (f"; {r['blocks_per_sm']} blocks an SM, {r['smem_bytes']} B shared "
+           f"memory a block")
+    if "warps" in r:
+        occ += f", {r['warps']} warps"
+    if "threads" in r:
+        occ += (f", {r['threads']} threads, {r['frames_per_block']} frames ("
+                + ", ".join(f"{o['frames_per_block']} at F={n}"
+                            for n, o in r["bucket_occupancy"].items()) + ")")
     log(f"  {name}: device ms {r['ms_device']:.4f} at F={FRAMES}, "
         + ", ".join(f"{v:.4f} at F={n}" for n, v in
-                    r["bucket_ms_device"].items())
-        + f"; {r['blocks_per_sm']} blocks an SM, {r['smem_bytes']} B shared "
-        f"memory a block" + (f", {r['warps']} warps" if "warps" in r else ""))
+                    r["bucket_ms_device"].items()) + occ)
+
+
+def fk_occupancy(tables, route, with_jac, F) -> dict:
+    """Frames, threads and shared memory a block and blocks an SM of the
+    fk_smalls launch at F frames, from its occupancy export."""
+    import ctypes
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.ops import marker_jac as mj
+    lib, _ = kernels.library()
+    nf = mj.fk_frames_per_block(F, kernels.sm_count(torch.device("cuda", 0)),
+                                with_jac, route)
+    smem, threads = ctypes.c_int(), ctypes.c_int()
+    blocks = lib.fk_smalls_occupancy(
+        int(with_jac), {"": 0, "ext": 1, "tiled": 2}[route],
+        tables.num_joints, tables.n_extra if route == "ext" else 0, nf,
+        ctypes.byref(smem), ctypes.byref(threads))
+    return dict(frames_per_block=nf, threads=threads.value,
+                smem_bytes=smem.value, blocks_per_sm=blocks)
+
+
+def fk_buckets(tables, route, with_jac, fn) -> dict:
+    """An fk_smalls launch's occupancy at F=FRAMES, and its device ms
+    (fn(n) on the first n frames) and occupancy at each of BUCKETS."""
+    return dict(**fk_occupancy(tables, route, with_jac, FRAMES),
+                bucket_ms_device=bucket_ms(fn),
+                bucket_occupancy={n: fk_occupancy(tables, route, with_jac, n)
+                                  for n in BUCKETS})
 
 
 def extras_occupancy(tables, F, cols=False) -> dict:
@@ -534,7 +574,7 @@ def check_tiled_kernels(bp, records, phase):
     log(f"phase {phase}: theta {tuple(theta.shape)}, M={M}, E={E}, D={D}, "
         f"featN={tables.feat_n}; jshift {tuple(jshift.shape)}, vpshift "
         f"{tuple(vpshift.shape)}")
-    t_fk = (tables.parents_t, tables.depth_t, tables.jnts, tables.trel)
+    t_fk = (tables.ancmask, tables.jnts, tables.trel)
 
     sms = {}
     for with_jac in (True, False):
@@ -548,7 +588,10 @@ def check_tiled_kernels(bp, records, phase):
                     lambda: mj.fk_smalls_tiled_plain(theta, jshift, tables,
                                                      with_jac)),
             **bound((theta, jshift, *t_fk), k,
-                    fk_flops(tables, F, with_jac, "tiled")))
+                    fk_flops(tables, F, with_jac, "tiled")),
+            **fk_buckets(tables, "tiled", with_jac, lambda n: mj.fk_smalls_tiled(
+                theta[:n], jshift[:n], tables, with_jac)))
+        log_buckets(name, records[name])
         if "q" in errs:
             records[name]["q_max_abs_err"] = errs["q"]
         sms[with_jac] = k
@@ -1465,6 +1508,8 @@ def main():
                          "plain_ms": r["plain_ms"],
                          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                          "library_ms": r.get("library_ms")})
+            if "bucket_ms_device" in r:
+                kern[-1]["bucket_ms_device"] = r["bucket_ms_device"]
             if "unfolded_ms" in r:
                 kern[-1]["unfolded_ms"] = r["unfolded_ms"]
                 kern[-1]["unfolded_ms_device"] = r["unfolded_ms_device"]

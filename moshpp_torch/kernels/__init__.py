@@ -9,9 +9,11 @@ sources and flags, so an edited source rebuilds and an unchanged one loads.
 Nothing here runs at import time: the CPU-only tests import the package on
 hosts without a CUDA toolkit.
 
-Each kernel wrapper adds one to `COUNTS.launches[name]` per launch; each
-plain (PyTorch) version adds one to `COUNTS.plain_cuda[name]` when it runs
-on CUDA tensors, which only comparisons against the kernel should do.
+Each kernel wrapper adds one to `COUNTS.launches[name]` per launch (the
+`fk_smalls` and `marker_rows` wrappers also to `COUNTS.frames[(name, F)]`,
+keyed by the launch's frame count); each plain (PyTorch) version adds one to
+`COUNTS.plain_cuda[name]` when it runs on CUDA tensors, which only
+comparisons against the kernel should do.
 """
 
 from __future__ import annotations
@@ -41,15 +43,19 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 @dataclasses.dataclass
 class Counts:
     """Launch counts of the kernel wrappers and of the plain versions run on
-    CUDA tensors, keyed by kernel name."""
+    CUDA tensors, keyed by kernel name; `frames` keyed by (kernel name,
+    frames of the launch) where the wrapper gives them."""
     launches: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     plain_cuda: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    frames: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
 
     def reset(self) -> None:
         self.launches.clear()
         self.plain_cuda.clear()
+        self.frames.clear()
 
 
 COUNTS = Counts()
@@ -142,9 +148,10 @@ def build() -> BuildInfo:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "fk_smalls_launch": [_I, _P, _P, _P, _I, _P, _P, _I, _I,
+    "fk_smalls_launch": [_I, _I, _P, _P, _P, _P, _I, _I,
                          _P, _P, _P, _P, _P, _P,
-                         _I, _P, _P, _P, _P, _P, _P],
+                         _I, _P, _P, _P, _P, _P],
+    "fk_smalls_occupancy": [_I, _I, _I, _I, _I, _P, _P],
     "marker_rows_launch": [_I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -158,7 +165,7 @@ _SIGNATURES = {
     "pcg_direction_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dogleg_direction_occupancy": [_I, _I, _P, _P],
     "marker_rows_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "fk_smalls_tiled_launch": [_I, _P, _P, _P, _I, _P, _P, _I, _I,
+    "fk_smalls_tiled_launch": [_I, _I, _P, _P, _P, _P, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "marker_rows_tiled_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P, _P,
@@ -188,15 +195,24 @@ def library():
     return lib, info
 
 
-def launch(fn: str, kernel: str, *args) -> None:
+def launch(fn: str, kernel: str, *args, frames: int = None) -> None:
     """Call launcher `fn` of the library on the current CUDA stream and count
-    one launch of `kernel`; raise if CUDA reports an error."""
+    one launch of `kernel` (and of `kernel` at `frames` frames, if given);
+    raise if CUDA reports an error."""
     lib, _ = library()
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}")
     COUNTS.launches[kernel] += 1
+    if frames is not None:
+        COUNTS.frames[(kernel, frames)] += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: torch.Tensor):

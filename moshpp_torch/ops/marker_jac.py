@@ -52,7 +52,7 @@ import torch
 
 from moshpp_torch import kernels
 from moshpp_torch.models.body_model import (SurfaceModel, _ancestor_matrix,
-                                            effective_weights, tree_depths)
+                                            effective_weights)
 from moshpp_torch.ops.lbs_jacobian import (JointSmalls, extras_cols_rows,
                                            extras_tangent_rows, hand_chain,
                                            joint_smalls, reconstruct_with_grad,
@@ -92,8 +92,6 @@ class MarkerJacTables:
     """Problem-frozen tables of a (model, marker set, betas) problem."""
     parents: Tuple[int, ...]
     parents_t: torch.Tensor    # (J,) int32
-    depth_t: torch.Tensor      # (J,) int32 tree depth, roots 0
-    max_depth: int
     jnts: torch.Tensor         # (J, 3) shaped rest joints
     trel: torch.Tensor         # (J, 3) parent-relative rest joints
     anc: torch.Tensor          # (J, J) anc[k, j] = 1 iff j on root->k path
@@ -199,7 +197,6 @@ def prepare_marker_jac_tables(model: SurfaceModel,
     anc = _ancestor_matrix(parents)
     bits = (anc.astype(np.uint64) << np.arange(J, dtype=np.uint64)).sum(
         axis=1, dtype=np.uint64)
-    depth = tree_depths(parents)
 
     w_i = w_eff[inst]                                          # (3M, J)
     wnz_j, wnz_w = sparse_weights(w_i)
@@ -218,8 +215,6 @@ def prepare_marker_jac_tables(model: SurfaceModel,
     return MarkerJacTables(
         parents=parents,
         parents_t=t(np.asarray(parents), torch.int32),
-        depth_t=t(np.asarray(depth), torch.int32),
-        max_depth=max(depth),
         jnts=t(jnts),
         trel=t(trel),
         anc=t(anc),
@@ -260,6 +255,28 @@ def sparse_weights(w: np.ndarray):
 
 
 # ---- fk_smalls ---------------------------------------------------------------
+
+FK_MAX_FRAMES = 4   # frames a block of fk_smalls (csrc/fk_smalls.cu kMaxFrames)
+
+
+def fk_frames_per_block(F: int, sms: int, with_jac: bool, route: str) -> int:
+    """Frames a block of an fk_smalls launch of F frames on a card of `sms`
+    SMs, route "", "ext" or "tiled" (measured on the H100: PERF.md §6):
+    - with inline extras, FK_MAX_FRAMES at every F: a block copies the
+      extra directions once, for all its frames;
+    - else with the Jacobian, one: a frame stages 84-93 floats a joint
+      (20-23 KB at J=52-55), so shared memory caps an SM at ~10 frames
+      whatever the blocking, and blocks of one frame keep the most warps
+      resident;
+    - else ceil(F / sms), at most FK_MAX_FRAMES: blocks few but still
+      spread over the SMs (F = 128 takes 1 frame a block, F = 512 takes 4
+      on the H100's 132 SMs)."""
+    if route == "ext":
+        return FK_MAX_FRAMES
+    if with_jac:
+        return 1
+    return max(1, min(FK_MAX_FRAMES, -(-F // sms)))
+
 
 def _check_extra(tables: MarkerJacTables, extra, F: int) -> None:
     """Raise unless `extra` matches the tables' E (None when E = 0)."""
@@ -312,11 +329,11 @@ def fk_smalls(theta: torch.Tensor, tables: MarkerJacTables,
     p = kernels.ptr
     kernels.launch(
         "fk_smalls_launch", _names(with_jac, _inline_route(tables))[0],
-        int(with_jac),
-        p(theta), p(tables.parents_t), p(tables.depth_t), tables.max_depth,
-        p(tables.jnts), p(tables.trel), F, J, p(sm.grot), p(sm.atr),
-        p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), E, p(extra),
-        p(tables.djnt), p(tables.dtrel), p(tables.ancmask), p(sm.datr))
+        int(with_jac), fk_frames_per_block(F, kernels.sm_count(theta.device),
+                                           with_jac, _inline_route(tables)),
+        p(theta), p(tables.ancmask), p(tables.jnts), p(tables.trel), F, J,
+        p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr),
+        E, p(extra), p(tables.djnt), p(tables.dtrel), p(sm.datr), frames=F)
     return sm
 
 
@@ -407,7 +424,8 @@ def marker_rows(sm: JointSmalls, trans: torch.Tensor,
         tables.hand_dof, D, p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot),
         p(sm.wtr), p(sm.dr), p(trans), p(tables.w3), p(tables.s3),
         p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
-        p(tables.hc), p(sim), p(jm), E, p(extra), p(sm.datr), p(tables.dv))
+        p(tables.hc), p(sim), p(jm), E, p(extra), p(sm.datr), p(tables.dv),
+        frames=F)
     return sim, jm
 
 
@@ -465,7 +483,7 @@ def marker_rows_fold(sm: JointSmalls, trans: torch.Tensor,
         p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr),
         p(trans), p(tables.w3), p(tables.s3), p(tables.vsh3), p(tables.pd3),
         p(tables.cf), p(tables.ancmask), p(tables.hc), p(rw), p(jw), E,
-        p(extra), p(sm.datr), p(tables.dv), p(obs), p(wrow))
+        p(extra), p(sm.datr), p(tables.dv), p(obs), p(wrow), frames=F)
     return rw, jw
 
 
@@ -512,9 +530,11 @@ def fk_smalls_tiled(theta: torch.Tensor, jshift: torch.Tensor,
     p = kernels.ptr
     kernels.launch(
         "fk_smalls_tiled_launch", _names(with_jac, "tiled")[0], int(with_jac),
-        p(theta), p(tables.parents_t), p(tables.depth_t), tables.max_depth,
-        p(tables.jnts), p(tables.trel), F, J, p(sm.grot), p(sm.atr),
-        p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), p(jshift), p(sm.q))
+        fk_frames_per_block(F, kernels.sm_count(theta.device), with_jac,
+                            "tiled"), p(theta),
+        p(tables.ancmask), p(tables.jnts), p(tables.trel), F, J, p(sm.grot),
+        p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), p(jshift),
+        p(sm.q), frames=F)
     return sm
 
 
@@ -595,7 +615,7 @@ def marker_rows_tiled(sm: JointSmalls, trans: torch.Tensor,
         tables.hand_dof, D, E, p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot),
         p(sm.wtr), p(sm.dr), p(trans), p(tables.w3), p(tables.s3),
         p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
-        p(tables.hc), p(vpshift), p(sim), p(jm), p(uv))
+        p(tables.hc), p(vpshift), p(sim), p(jm), p(uv), frames=F)
     return sim, jm, uv
 
 
@@ -639,7 +659,7 @@ def marker_rows_tiled_fold(sm: JointSmalls, trans: torch.Tensor,
         p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), p(trans),
         p(tables.w3), p(tables.s3), p(tables.vsh3), p(tables.pd3),
         p(tables.cf), p(tables.ancmask), p(tables.hc), p(vpshift), p(rw),
-        p(jw), p(uv), p(obs), p(wrow))
+        p(jw), p(uv), p(obs), p(wrow), frames=F)
     return rw, jw, uv
 
 

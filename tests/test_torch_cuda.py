@@ -11,6 +11,7 @@ at the main path's shapes.
 """
 
 import ctypes
+import dataclasses
 import os
 import sys
 
@@ -79,6 +80,159 @@ def test_fk_smalls_kernel_matches_plain(dev, family, dph, M, with_jac):
             assert a is None
             continue
         torch.testing.assert_close(a, b, rtol=0, atol=2e-5, msg=f)
+
+
+# fk_smalls' frame counts off its blocks: 1, 129, and for the rule's choices
+# on a 132-SM card (ceil(F / sms) frames a block without the Jacobian and
+# inline extras) counts that take 2, 3 and 4 and end in a ragged block
+# (sms + 1, 2 sms + 2, 3 sms + 5), and one past the cap of 4 (4 sms + 7);
+# each also ragged at the other choices (129 at 2, 133 at 3, 535 at 4)
+def _fk_frame_counts(sms):
+    return (1, 129, sms + 1, 2 * sms + 2, 3 * sms + 5, 4 * sms + 7)
+
+
+def _check_fk(k, p, datr_tol=1e-6):
+    """An fk_smalls kernel's outputs against its plain version's: every
+    field within 2e-5, datr within datr_tol of its largest entry (at least
+    1), and every field written (finite)."""
+    for f, a, b in zip(k._fields, k, p):
+        if b is None:
+            assert a is None, f
+            continue
+        assert torch.isfinite(a).all(), f
+        atol = (datr_tol * max(float(b.abs().max()), 1.0) if f == "datr"
+                else 2e-5)
+        torch.testing.assert_close(a, b, rtol=0, atol=atol, msg=f)
+
+
+def _fk_both(tables, theta, extra, jshift, with_jac):
+    """(kernel, plain) outputs of the route's fk_smalls."""
+    if tables.route == "tiled":
+        return (mj.fk_smalls_tiled(theta, jshift, tables, with_jac),
+                mj.fk_smalls_tiled_plain(theta, jshift, tables, with_jac))
+    return (mj.fk_smalls(theta, tables, with_jac, extra),
+            mj.fk_smalls_plain(theta, tables, with_jac, extra))
+
+
+@pytest.mark.parametrize("E", [0, 8, 20])
+@pytest.mark.parametrize("with_jac", [True, False])
+@pytest.mark.parametrize("family,dph", [("mano", 6), ("smpl", 6),
+                                        ("smplh", 24), ("smplx", 24)])
+def test_fk_smalls_frame_counts(dev, monkeypatch, family, dph, with_jac, E):
+    """Every fk_smalls instantiation (E=0, inline E=8, tiled E=20) on the
+    four families' trees (J = 16, 24, 52, 55: a frame's records at J=55 end
+    off 16 bytes) at frame counts that end in a ragged block, at its own
+    frames a block and at each of 1-4 forced, against its plain version;
+    every launch gives the same bits as the first F frames of the widest
+    launch at 1 frame a block."""
+    model, tables, rng = _tables(family, dph, 7, dev, E=E)
+    sms = kernels.sm_count(torch.device(dev))
+    counts = _fk_frame_counts(sms)
+    x = torch.as_tensor((rng.normal(size=(max(counts), tables.dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    x[0] = 0.0
+    theta, _, extra = mj.kernel_inputs(model, tables, x)
+    jshift = (mj.extra_shifts(tables, extra)[0] if tables.route == "tiled"
+              else None)
+    cut = lambda a, F: None if a is None else a[:F]
+    rule = mj.fk_frames_per_block
+    if not with_jac and tables.route != "ext":
+        assert {rule(F, sms, with_jac, tables.route)
+                for F in counts} == {1, 2, 3, 4}
+    widest = None
+    for nf in (1, 2, 3, 4, None):
+        monkeypatch.setattr(mj, "fk_frames_per_block",
+                            rule if nf is None else lambda *a, nf=nf: nf)
+        for F in reversed(counts):
+            k, p = _fk_both(tables, theta[:F], cut(extra, F), cut(jshift, F),
+                            with_jac)
+            torch.cuda.synchronize()
+            _check_fk(k, p)
+            if widest is None:
+                widest = k
+                continue
+            for f, a, b in zip(k._fields, k, widest):
+                if a is not None:
+                    assert torch.equal(a, b[:F]), (nf, F, f)
+
+
+def _tree_tables(J, E, seed, dev):
+    """fk_smalls tables of a random J-joint tree (parents first, chains up
+    to ~J/3 deep) with E extra dims: the smplh tables with their tree, rest
+    joints and extra directions replaced."""
+    from moshpp_torch.models.body_model import _ancestor_matrix
+    rng = np.random.default_rng(seed)
+    parents = tuple([-1] + [j - 1 if rng.random() < 0.6
+                            else int(rng.integers(0, j)) for j in range(1, J)])
+    _, base, _ = _tables("smplh", 24, 7, dev, E=min(E, 16))
+    jnts = rng.normal(size=(J, 3)).astype(np.float32) * 0.2
+    djnt = rng.normal(size=(J, E, 3)).astype(np.float32) * 0.05
+    trel, dtrel = jnts.copy(), djnt.copy()
+    for j, p in enumerate(parents):
+        if p >= 0:
+            trel[j] -= jnts[p]
+            dtrel[j] -= djnt[p]
+    anc = _ancestor_matrix(parents)
+    bits = (anc.astype(np.uint64) << np.arange(J, dtype=np.uint64)).sum(
+        axis=1, dtype=np.uint64)
+    t = lambda a, dt=torch.float32: torch.as_tensor(a, dtype=dt, device=dev)
+    return dataclasses.replace(
+        base, parents=parents, parents_t=t(np.asarray(parents), torch.int32),
+        jnts=t(jnts), trel=t(trel), anc=t(anc),
+        ancmask=t(bits.view(np.int64), torch.int64), djnt=t(djnt),
+        dtrel=t(dtrel)), rng
+
+
+@pytest.mark.parametrize("route", ["", "ext", "tiled"])
+@pytest.mark.parametrize("with_jac", [True, False])
+@pytest.mark.parametrize("J", [64, 33, 1])
+def test_fk_smalls_widest_trees(dev, monkeypatch, J, with_jac, route):
+    """fk_smalls at the limits it takes, J = 64 joints and E = 16 inline
+    extra dims, and on a 33-joint and a one-joint tree, at every
+    frames-a-block choice, against its plain version (datr within 1e-6)."""
+    rule = mj.fk_frames_per_block
+    E = {"": 0, "ext": 16, "tiled": 0}[route]
+    tables, rng = _tree_tables(J, E, J + E, dev)
+    assert tables.num_joints == J and tables.n_extra == E
+    sms = kernels.sm_count(torch.device(dev))
+    # the rule's own frames a block at F = 1 and 129, then 2, 3, 1, 4
+    for F, nf in zip(_fk_frame_counts(sms), (None, None, 2, 3, 1, 4)):
+        monkeypatch.setattr(mj, "fk_frames_per_block",
+                            rule if nf is None else lambda *a, nf=nf: nf)
+        theta = torch.as_tensor((rng.normal(size=(F, J, 3)) * 0.6)
+                                .astype(np.float32), device=dev)
+        extra = (torch.as_tensor(rng.normal(size=(F, E)).astype(np.float32),
+                                 device=dev) if E else None)
+        jshift = (torch.as_tensor((rng.normal(size=(F, 2, J, 3)) * 0.05)
+                                  .astype(np.float32), device=dev)
+                  if route == "tiled" else None)
+        k, p = _fk_both(tables, theta, extra, jshift, with_jac)
+        torch.cuda.synchronize()
+        _check_fk(k, p)
+
+
+def test_fk_smalls_occupancy(dev):
+    """fk_smalls' occupancy export: every instantiation at the slices'
+    widths (J=52, 52 with E=8, 55 tiled) and at the limits (J=64, E=16)
+    fits a block an SM at 1-4 frames a block, with nf * J threads rounded to
+    warps; it refuses 5 frames, 65 joints, 17 inline extra dims and extra
+    dims on the wrong route."""
+    lib, _ = kernels.library()
+    smem, threads = ctypes.c_int(), ctypes.c_int()
+    for jac in (1, 0):
+        for route, J, E in ((0, 52, 0), (1, 52, 8), (2, 55, 0), (0, 64, 0),
+                            (1, 64, 16), (2, 64, 0)):
+            for nf in (1, 2, 3, 4):
+                blocks = lib.fk_smalls_occupancy(jac, route, J, E, nf,
+                                                 ctypes.byref(smem),
+                                                 ctypes.byref(threads))
+                assert blocks >= 1, (jac, route, J, E, nf)
+                assert threads.value == -(-nf * J // 32) * 32
+                assert 0 < smem.value <= 232448
+    for args in ((1, 0, 52, 0, 5), (1, 0, 65, 0, 1), (1, 1, 52, 17, 1),
+                 (1, 0, 52, 8, 1), (1, 2, 55, 8, 1), (1, 1, 52, 0, 1)):
+        assert lib.fk_smalls_occupancy(*args, ctypes.byref(smem),
+                                       ctypes.byref(threads)) == 0, args
 
 
 @pytest.mark.parametrize("family,dph,M", CASES)

@@ -6,6 +6,7 @@ against another checkout of the port.
                                         [--fold]
     python tools/profile_torch_slice.py --ab OTHER_CHECKOUT [--pairs 10]
     python tools/profile_torch_slice.py --kernel-ab OTHER_CHECKOUT [--pairs 10]
+    python tools/profile_torch_slice.py --fk-frames
 
 Both use `chip_smoke.bench_problem` (the bench.py protocol: full-width
 SMPL+H, 46 markers, maxiter 100, two smoothing sweeps, fingers free), or
@@ -22,13 +23,22 @@ torch.profiler. Prints the untraced and traced wall, the device time summed
 over kernels, the idle share of the untraced wall, the peak device memory
 and the card, and writes the per-kernel table (self device time, calls) to
 chiprun_out/profile_slice.txt (profile_<problem>.txt for the others,
-with `_fold` before the suffix for the folded slice).
+with `_fold` before the suffix for the folded slice), followed by the
+traced solve's launches of each `fk_smalls` and `marker_rows`
+instantiation by frame count (the launch counters, `kernels.COUNTS.frames`)
+and, for `fk_smalls`, those counts times its device ms at each frame count:
+the solve's estimated `fk_smalls` time and the share of the small batches
+(F <= 513: the anchor pass and the compaction buckets).
 
 A/B: one worker process per checkout (this one is A, OTHER_CHECKOUT is B),
 each with its own kernels and problem; after one warm-up solve each, solves
 run in turns A B B A for --pairs pairs. Prints each side's median and
 quartiles in seconds and frames/s, how many pairs B won, and each side's
 host syncs and mean marker error.
+
+Frames a block (`--fk-frames`): each `fk_smalls` instantiation's device
+ms at F = 4096, 2048, 512, 128 with 1, 2, 3 and 4 frames a block forced,
+beside the rule's choice (`marker_jac.fk_frames_per_block`).
 
 Kernel A/B: this checkout's kernel library against OTHER_CHECKOUT's (built
 by its own `moshpp_torch.kernels`), in one process. Prints, for every
@@ -44,7 +54,11 @@ at F=4096 (the bench problem for `<jac>`, `<sim>`, `<jac,fold>`; the DMPL
 problem for the `ext` three; the face problem for the `tiled` three), and
 of both direction launchers (`dogleg_direction`, `pcg_direction`) on
 `pcg.direction_test_system(4096, D, 1e2)` at D=117/125/206 with 24 and 128
-iterations, in --pairs alternating pairs (A B, B A, ...); before those,
+iterations, in --pairs alternating pairs (A B, B A, ...); before each
+problem's `marker_rows`, its two `fk_smalls` instantiations at F = 4096,
+2048, 512, 128, each pair's outputs compared (bit for bit but datr; datr's
+largest difference and its effect on `marker_rows<jac,ext>`'s jm), a parent
+build without `fk_smalls_occupancy` called in its own signatures; before those,
 `extras_tangent` and `extras_cols` on the face problem (E=80) at the
 solve's bucket sizes F = 4096, 2048, 512, 128 and on a 20-DMPL tiled
 problem at F=4096, each pair's outputs compared first. Each line gives
@@ -93,7 +107,7 @@ def _setup(repo, frames, problem="bench", fold=False):
                                          device="cuda")
         torch.cuda.synchronize()
         return res
-    return cs, solve
+    return cs, solve, bp
 
 
 def _timed(solve):
@@ -105,16 +119,20 @@ def _timed(solve):
 def profile(frames, problem, fold):
     import torch
     from torch.profiler import ProfilerActivity
-    cs, solve = _setup(REPO, frames, problem, fold)
+    cs, solve, bp = _setup(REPO, frames, problem, fold)
     card = cs.card_line()
     solve()
     solve()
+    from moshpp_torch import kernels
     torch.cuda.reset_peak_memory_stats()
     wall, _ = _timed(solve)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    kernels.COUNTS.reset()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         traced, _ = _timed(solve)
+    by_frames = sorted(kernels.COUNTS.frames.items(),
+                    key=lambda kv: (kv[0][0], -kv[0][1]))
     # kernel rows only: an aten op's row repeats its kernels' device time
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -127,19 +145,51 @@ def profile(frames, problem, fold):
             f"{', folded weights' if fold else ''}")
     lines = [head, card] + [
         f"{e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}  {e.key[:120]}"
-        for e in rows]
+        for e in rows] + ["launches of the traced solve by frame count:"] + [
+        f"{n:6d} x F={F:<6d} {name}" for (name, F), n in by_frames] + (
+        _fk_buckets(cs, bp, by_frames))
     out = os.path.join(REPO, "chiprun_out")
     os.makedirs(out, exist_ok=True)
     name = ("profile_slice" if problem == "bench"
             else f"profile_{problem}") + ("_fold" if fold else "") + ".txt"
     with open(os.path.join(out, name), "w") as f:
         f.write("\n".join(lines) + "\n")
-    print("\n".join(lines[:30]))
+    print("\n".join(lines[:30] + lines[len(rows) + 2:]))
+
+
+def _fk_buckets(cs, bp, by_frames, small=513):
+    """Each fk_smalls instantiation's launches at each frame count times its
+    device ms there (on the problem's first F frames of x_true, `cuda_ms`
+    with the stream held): the solve's estimated fk_smalls time and the
+    share of the launches at F <= `small` (the anchor pass's 513 frames and
+    the compaction buckets)."""
+    from moshpp_torch.ops import marker_jac as mj
+    t = bp["prob"].tables
+    out = ["fk_smalls device ms a solve from the launches by frame count:"]
+    for with_jac in (True, False):
+        name = mj._names(with_jac, t.route)[0]
+        total = part = 0.0
+        for (kernel, F), n in by_frames:
+            if kernel != name:
+                continue
+            theta, _, extra = mj.kernel_inputs(bp["prob"].sub_model, t,
+                                               bp["x_true"][:F])
+            if t.route == "tiled":
+                jshift, _ = mj.extra_shifts(t, extra)
+                fn = lambda: mj.fk_smalls_tiled(theta, jshift, t, with_jac)
+            else:
+                fn = lambda: mj.fk_smalls(theta, t, with_jac, extra)
+            ms = n * cs.cuda_ms(fn, n=10, hold=True)
+            total += ms
+            part += ms if F <= small else 0.0
+        out.append(f"  {name}: {total:.3f} ms, of which F <= {small}: "
+                   f"{part:.3f} ms ({100 * part / max(total, 1e-12):.1f} %)")
+    return out
 
 
 def worker(repo, frames):
     """Serve solves on request: one line in ('solve'), one JSON line out."""
-    _, solve = _setup(repo, frames)
+    _, solve, _ = _setup(repo, frames)
     solve()
     print("ready", flush=True)
     for line in sys.stdin:
@@ -313,6 +363,118 @@ def _extras_launches(lib, t, sm, datr_in, uv, datr_out, jm):
             lambda: lib.extras_cols_launch(*cols))
 
 
+# fk_smalls' launchers before their redesign (builds without
+# `fk_smalls_occupancy`): the parents and depth levels in place of the frames
+# a block, the ancestor masks after dtrel (none on the tiled route)
+FK_OLD_SIGNATURES = {
+    "fk_smalls_launch": [_I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+                         _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "fk_smalls_tiled_launch": [_I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P,
+                               _P, _P, _P, _P, _P, _P, _P],
+}
+
+
+def _fk_launch(lib, t, jac, theta, extra, jshift, o):
+    """A zero-argument launch of one build's fk_smalls instantiation on
+    these inputs into the JointSmalls o, in the build's own signature."""
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.models.body_model import tree_depths
+    from moshpp_torch.ops import marker_jac as mj
+    new = hasattr(lib, "fk_smalls_occupancy")
+    tiled = t.route == "tiled"
+    name = "fk_smalls_tiled_launch" if tiled else "fk_smalls_launch"
+    fn = getattr(lib, name)
+    fn.argtypes = (kernels._SIGNATURES if new else FK_OLD_SIGNATURES)[name]
+    fn.restype = ctypes.c_int
+    p = kernels.ptr
+    F, J = theta.shape[0], t.num_joints
+    outs = (p(o.grot), p(o.atr), p(o.feat), p(o.wrot), p(o.wtr), p(o.dr))
+    if new:
+        nf = mj.fk_frames_per_block(F, kernels.sm_count(theta.device),
+                                    bool(jac), t.route)
+        head = (jac, nf, p(theta), p(t.ancmask), p(t.jnts), p(t.trel), F, J,
+                *outs)
+    else:
+        depth = tree_depths(t.parents)
+        o._depth = torch.tensor(depth, dtype=torch.int32, device=theta.device)
+        head = (jac, p(theta), p(t.parents_t), p(o._depth), max(depth),
+                p(t.jnts), p(t.trel), F, J, *outs)
+    if tiled:
+        tail = (p(jshift), p(o.q))
+    else:
+        tail = (t.n_extra, p(extra), p(t.djnt), p(t.dtrel),
+                *(() if new else (p(t.ancmask),)), p(o.datr))
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (*head, *tail, stream)
+    return lambda: fn(*args)
+
+
+FK_FIELDS = ("grot", "atr", "feat", "wrot", "wtr", "dr", "q")
+
+
+def fk_ab(cs, lib_a, lib_b, bp, pairs, res):
+    """The problem's two fk_smalls instantiations from the two builds in
+    alternating pairs at the solve's frame counts F = 4096, 2048, 512, 128:
+    each pair's outputs compared first (bit for bit but datr; datr's largest
+    difference and, with the Jacobian and inline extras, its effect on this
+    tree's marker_rows<jac,ext> jm)."""
+    import types
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.ops import marker_jac as mj
+    t = bp["prob"].tables
+    theta, trans, extra = mj.kernel_inputs(bp["prob"].sub_model, t,
+                                           bp["x_true"])
+    jshift = mj.extra_shifts(t, extra)[0] if t.route == "tiled" else None
+    route = {"": 0, "ext": 1, "tiled": 2}[t.route]
+    for jac in (1, 0):
+        name = mj._names(bool(jac), t.route)[0]
+        key = ("fk_smalls", str(jac), str(int(route == 1)),
+               str(int(route == 2)), "0")
+        for F in (4096, 2048, 512, 128):
+            th = theta[:F]
+            ex = None if extra is None else extra[:F]
+            js = None if jshift is None else jshift[:F]
+            like = (mj.fk_smalls_tiled(th, js, t, bool(jac)) if route == 2
+                    else mj.fk_smalls(th, t, bool(jac), ex))
+            outs = {s: types.SimpleNamespace(**{
+                f: None if v is None else torch.full_like(v, float("nan"))
+                for f, v in zip(like._fields, like)}) for s in "AB"}
+            fns = {s: _fk_launch(lib, t, jac, th, ex, js, outs[s])
+                   for s, lib in (("A", lib_a), ("B", lib_b))}
+            for s in "AB":
+                assert fns[s]() == 0, (name, F, s)
+            torch.cuda.synchronize()
+            a_o, b_o = outs["A"], outs["B"]
+            same = all(torch.equal(getattr(a_o, f), getattr(b_o, f))
+                       for f in FK_FIELDS if getattr(a_o, f) is not None)
+            note = f"; outputs but datr bit for bit: {same}"
+            if a_o.datr is not None:
+                note += (f", datr |A - B| "
+                         f"{float((a_o.datr - b_o.datr).abs().max()):.3g}")
+                jm = {s: mj.marker_rows(mj.JointSmalls(**{
+                    f: getattr(outs[s], f) for f in like._fields}),
+                    trans[:F], t, True, ex)[1] for s in "AB"}
+                note += (f", marker_rows<jac,ext> jm |A - B| "
+                         f"{float((jm['A'] - jm['B']).abs().max()):.3g} "
+                         f"(|jm| max {float(jm['A'].abs().max()):.3g})")
+                del jm
+            smem, threads = ctypes.c_int(), ctypes.c_int()
+            nf = mj.fk_frames_per_block(F, kernels.sm_count(theta.device),
+                                        bool(jac), t.route)
+            blocks = lib_a.fk_smalls_occupancy(
+                jac, route, t.num_joints, t.n_extra if route == 1 else 0, nf,
+                ctypes.byref(smem), ctypes.byref(threads))
+            a, b = _ab_pairs(cs, fns, pairs, 10)
+            _ab_line(f"{name}@F={F}", a, b, pairs,
+                     f"{note}; A: {res(key, 'A')}, {nf} frames, "
+                     f"{threads.value} threads, {smem.value} B shared memory "
+                     f"a block, {blocks} blocks an SM; B: {res(key, 'B')}")
+            del outs, fns, like
+    torch.cuda.empty_cache()
+
+
 def _dmpl_tiled_problem(cs, frames):
     """chip_smoke's DMPL problem with 20 DMPL dims, which take the tiled
     route: 36 shape dirs (DMPLs in columns 16-35), D = 3 + 114 + 20."""
@@ -403,7 +565,7 @@ def _ab_line(name, a, b, pairs, extra=""):
 
 def kernel_ab(other, pairs):
     import torch
-    cs, _ = _setup(REPO, 8)
+    cs, _, _ = _setup(REPO, 8)
     from moshpp_torch import kernels
     from moshpp_torch.ops import marker_jac as mj
     from moshpp_torch.solver import pcg
@@ -448,6 +610,7 @@ def kernel_ab(other, pairs):
         theta, trans, extra = mj.kernel_inputs(bp["prob"].sub_model, t,
                                                bp["x_true"])
         F, M = trans.shape[0], t.num_markers
+        fk_ab(cs, lib_a, lib_b, bp, pairs, res)
         vpshift = None
         if t.route == "tiled":
             jshift, vpshift = mj.extra_shifts(t, extra)
@@ -518,11 +681,54 @@ def kernel_ab(other, pairs):
         torch.cuda.empty_cache()
 
 
+def fk_frames(frames_a_block=(1, 2, 3, 4)):
+    """Device ms of each fk_smalls instantiation (bench, DMPL and face
+    problems) at F = 4096, 2048, 512, 128, with each frames-a-block choice
+    forced, beside the one `fk_frames_per_block` makes: the measurement
+    behind that rule."""
+    import torch
+    cs, _, _ = _setup(REPO, 8)
+    from moshpp_torch import kernels
+    from moshpp_torch.ops import marker_jac as mj
+    print(cs.card_line())
+    rule = mj.fk_frames_per_block
+    for problem in ("bench", "dmpl", "face"):
+        bp = getattr(cs, f"{problem}_problem")(4096, "cuda")
+        t = bp["prob"].tables
+        theta, _, extra = mj.kernel_inputs(bp["prob"].sub_model, t,
+                                           bp["x_true"])
+        jshift = mj.extra_shifts(t, extra)[0] if t.route == "tiled" else None
+        for with_jac in (True, False):
+            name = mj._names(with_jac, t.route)[0]
+            for F in (4096, 2048, 512, 128):
+                th = theta[:F]
+                if jshift is not None:
+                    js = jshift[:F]
+                    fn = lambda: mj.fk_smalls_tiled(th, js, t, with_jac)
+                else:
+                    ex = None if extra is None else extra[:F]
+                    fn = lambda: mj.fk_smalls(th, t, with_jac, ex)
+                times = []
+                try:
+                    for nf in frames_a_block:
+                        mj.fk_frames_per_block = lambda *a, nf=nf: nf
+                        times.append(f"{nf}: {cs.cuda_ms(fn, n=20, hold=True):.4f}")
+                finally:
+                    mj.fk_frames_per_block = rule
+                pick = rule(F, kernels.sm_count(th.device), with_jac, t.route)
+                print(f"{name}@F={F} device ms at frames a block "
+                      f"{', '.join(times)}; the rule takes {pick}", flush=True)
+        del bp
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=4096)
     ap.add_argument("--ab", metavar="OTHER_CHECKOUT")
     ap.add_argument("--kernel-ab", metavar="OTHER_CHECKOUT")
+    ap.add_argument("--fk-frames", action="store_true",
+                    help="time fk_smalls at each frames-a-block choice")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--problem", choices=("bench", "dmpl", "face"),
                     default="bench")
@@ -539,6 +745,8 @@ def main():
         ab(a.ab, a.frames, a.pairs)
     elif a.kernel_ab:
         kernel_ab(a.kernel_ab, a.pairs)
+    elif a.fk_frames:
+        fk_frames()
     else:
         profile(a.frames, a.problem, a.fold)
 
