@@ -50,22 +50,41 @@ Phases, each failing loudly (exception, nonzero exit, no ok line):
      ones, held to its float64 plain version; the card's folded solve at
      F=256 against the CPU's (phase 3's, 3b's, and a folded one for the
      face problem); the three folded slices at F=4096, with their peak
-     device memory beside the unfolded slices'.
+     device memory beside the unfolded slices';
+  2e-4e, 2f-4f, 2g-4g. the other families (`FAMILIES`): the SMAL horse
+     (`horse_problem`: J=36, P=108, D=111, its callable prior, Mahalanobis
+     rows and leg-bend rows, loaded with `load_horse_prior`), the SMAL dog
+     (`dog_problem`: J=35, P=105, D=108, an 8-component GMM on its 93
+     gathered dofs, loaded with `load_dog_prior`), both at SMAL's 3889
+     vertices with 46 markers, and a rigid prop (`object_problem`: read
+     from a PLY, one joint, no posedirs, 10 markers, no prior, D=6): the
+     five main-path kernels at each family's shapes against their plain
+     versions (recorded as `<name>@horse`, `@dog`, `@object`), CPU-vs-card
+     parity at F=64 with phase 3b's floor gate, and the F=4096 slice;
+  5. a long sequence: the bench problem at F=40,000 solved on the card in
+     one batch and in three chunks (chunk_frames 16384, chunk_halo 32)
+     with a checkpoint directory, then again from the checkpoints: the
+     chunked run's launches, its mean marker error against the one batch's,
+     its deviation on the seam frames against a floor drawn from two
+     one-batch solves 1e-7 m apart, and the rerun's (no solve, the same
+     arrays bit for bit).
 
 Every kernel entry carries its bound: the least time the card could take
 for the call, the larger of its bytes (each input read once, each output
 written once) over the memory rate and its operations over the float32
 and float64 rates (`bound`).
 
-The last three lines of stdout are the kernels JSON (nineteen kernel
-entries, one per Pallas kernel), the card's name and power limit, and {"ok": true, "device":
-{...}}. A fuller record goes to chiprun_out/chip_smoke.json.
+The last three lines of stdout are the kernels JSON (34 kernel entries:
+one per Pallas kernel, and the five main-path kernels again at each other
+family's shapes), the card's name and power limit, and {"ok": true,
+"device": {...}}. A fuller record goes to chiprun_out/chip_smoke.json.
 """
 
 import dataclasses
 import json
 import multiprocessing
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -213,7 +232,9 @@ def timed(kernel_fn, plain_fn, n_plain=5) -> dict:
 
 
 def max_err(a, b) -> float:
-    return float((a - b).abs().max())
+    """The largest |a - b|; 0 for empty tensors (the rigid object's one
+    joint has no pose features)."""
+    return float((a - b).abs().max()) if a.numel() else 0.0
 
 
 def smalls_errors(name, k, p) -> dict:
@@ -224,7 +245,8 @@ def smalls_errors(name, k, p) -> dict:
     torch.cuda.synchronize()
     errs = {f: max_err(a, b) for f, a, b in zip(k._fields, k, p)
             if a is not None}
-    scale = max(1.0, max(float(b.abs().max()) for b in p if b is not None))
+    scale = max(1.0, max(float(b.abs().max()) for b in p
+                         if b is not None and b.numel()))
     log(f"  {name}: max abs err {errs} (scale {scale:.3g})")
     assert max(errs.values()) <= TOL_SMALLS * scale, (name, errs)
     return errs
@@ -406,10 +428,201 @@ def parity_problem(frames, device):
         prior_seed=2, beta_scale=0.3, pose0_scale=0.12)
 
 
-def check_marker_kernels(bp, records, phase):
+# SMAL's template mesh (Zuffi et al., CVPR 2017) has 3889 vertices; the
+# icosphere rounds it up to 10242, as it rounds up SMPL+H's 6890
+SMAL_VERTS = 3889
+OBJECT_MARKERS = 10
+OBJECT_SIZE_M = (0.11, 0.07, 0.19)   # the prop of tests/golden_common.py
+KEY_STRIDE = 32     # frames between the animals' prior-drawn key poses
+# the animal priors' spread (rad): with the truth drawn from the prior, the
+# optimum of prior and data sits 0.8 mm of mean marker error off the truth
+# at 46 markers, and wider priors (larger poses) move it further (0.3:
+# 1.16 mm on the horse, a CPU solve at F=64)
+ANIMAL_PRIOR_SCALE = 0.15
+
+
+def smooth_keys(keys, frames):
+    """(frames, D) through key poses (K, D) set every KEY_STRIDE frames,
+    cubic smoothstep between neighbours (at rest at each key)."""
+    t = np.arange(frames) / KEY_STRIDE
+    i = np.minimum(t.astype(int), len(keys) - 2)
+    a = (t - i)[:, None]
+    s = a * a * (3.0 - 2.0 * a)
+    return ((1.0 - s) * keys[i] + s * keys[i + 1]).astype(np.float32)
+
+
+def _covariances(rng, dim, K, scale):
+    """K covariances scale^2 (I + A A^T), A ~ N(0, 0.1^2), as the JAX
+    package's synthetic GMM prior draws them."""
+    out = []
+    for _ in range(K):
+        a = rng.normal(size=(dim, dim)) * 0.1
+        out.append(scale ** 2 * (np.eye(dim) + a @ a.T))
+    return np.stack(out)
+
+
+def _problem_dict(model, prior, opts, betas, latents, poses, trans, device,
+                  model_type, **extra):
+    """Observations of the truth (trans, poses) through the port's forward
+    model, and the problem around them."""
+    import torch
+    from moshpp_torch.pipeline.stageii import (prepare_stageii_problem,
+                                               simulate_markers)
+    prob = prepare_stageii_problem(model, betas, latents, opts, device=device)
+    x_true = torch.as_tensor(np.concatenate([trans, poses], 1), device=device)
+    obs = simulate_markers(prob, opts, x_true)
+    mask = torch.ones(obs.shape[:2], dtype=torch.bool, device=device)
+    return dict(model=model, prior=prior, betas=torch.as_tensor(
+        betas, device=device), opts=opts, prob=prob, x_true=x_true, obs=obs,
+        mask=mask, model_type=model_type, **extra)
+
+
+def _markers_on(model, betas, rng, M, device):
+    """M latent markers 9.5 mm off random surface vertices of the shaped
+    body."""
+    import torch
+    from moshpp_torch.ops.surface import vertex_normals
+    vids = rng.choice(model.v_template.shape[0], M, replace=False)
+    nb = len(betas)
+    can_v = model.v_template + torch.einsum(
+        "vcb,b->vc", model.shapedirs[..., :nb],
+        torch.as_tensor(betas, device=device))
+    vn = vertex_normals(can_v, model.faces)
+    return (can_v[vids] + vn[vids] * 0.0095).cpu().numpy()
+
+
+def _root_walk(rng, frames, scale0, step):
+    """An AR(1) walk x_t = 0.97 x_(t-1) + N(0, step^2) of 3 dofs."""
+    x = np.zeros((frames, 3), np.float32)
+    x[0] = rng.normal(size=3) * scale0
+    for t in range(1, frames):
+        x[t] = 0.97 * x[t - 1] + rng.normal(size=3) * step
+    return x
+
+
+def animal_problem(family, frames, device):
+    """A synthetic SMAL animal at the family's real joint tree and pose
+    width (`animal_horse` J=36, P=108; `animal_dog` J=35, P=105), SMAL's
+    vertex count, 46 markers (the bench protocol's), maxiter 100, two
+    smoothing sweeps. The prior is written to a pkl in a temporary
+    directory and loaded as a user would: the horse's Mahalanobis prior
+    (`load_horse_prior`: keys `pic`, `mean_pose`, the first 81 dofs) and its
+    leg-bend rows (`horse_prior`), or the dog's 8-component GMM over its 93
+    `DOG_POSE_IDS` (`save_gmm_prior_pkl` with the dog's keys,
+    `load_dog_prior`). The truth's prior-covered dofs pass through key poses
+    drawn from the prior's own distribution every KEY_STRIDE frames
+    (`sample_gmm_prior` for the dog; for the horse the Gaussian whose
+    whitened rows (x - mean) @ prec are N(0, I)); the root is an AR(1) walk
+    and the dofs the solve never frees (the horse's tail, mouth and ears,
+    84-107; the dog's joints 2, 6, 29) stay at zero."""
+    import tempfile
+    from moshpp_torch.models import make_synthetic_model
+    from moshpp_torch.models.body_model import pose_part_ids
+    from moshpp_torch.pipeline.stageii import StageIIOptions
+    from moshpp_torch.priors import gmm, mahalanobis
+
+    rng = np.random.default_rng(0)
+    model = make_synthetic_model(family, num_verts=SMAL_VERTS, seed=3,
+                                 device=device)
+    opts = StageIIOptions(maxiter=100, smoothing_sweeps=2)
+    P = model.pose_dof
+    body = np.asarray(pose_part_ids(family, optimize_toes=True)["body"])
+    nkeys = frames // KEY_STRIDE + 2
+    extra = {}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "prior.pkl")
+        if family == "animal_horse":
+            cov = _covariances(rng, P, 1, ANIMAL_PRIOR_SCALE)[0]
+            mean = rng.normal(size=P) * ANIMAL_PRIOR_SCALE * 0.5
+            with open(path, "wb") as f:
+                pickle.dump({"pic": np.linalg.cholesky(np.linalg.inv(cov)),
+                             "mean_pose": mean}, f)
+            src = mahalanobis.load_horse_prior(path, device=device)
+            prior = mahalanobis.horse_prior(src)
+            # the Gaussian whose negative log-density is the rows' |r|^2,
+            # as the GMM's rows are (sample_gmm_prior): r ~ N(0, I / 2)
+            prec = src.prec.double().cpu().numpy()
+            z = rng.standard_normal((nkeys, prec.shape[0])) / np.sqrt(2.0)
+            keys = src.mean.double().cpu().numpy() + np.linalg.solve(
+                prec.T, z.T).T
+            extra["horse"] = src
+        else:
+            K, dim = 8, len(body)
+            gmm.save_gmm_prior_pkl({
+                "gmm_means": rng.normal(size=(K, dim)) * (
+                    ANIMAL_PRIOR_SCALE * 0.5),
+                "gmm_covs": _covariances(rng, dim, K, ANIMAL_PRIOR_SCALE),
+                "gmm_weights": rng.dirichlet(np.ones(K))}, path)
+            prior = mahalanobis.load_dog_prior(path, device=device)
+            keys = gmm.sample_gmm_prior(prior, rng, nkeys)
+    betas = (rng.normal(size=16) * 0.4).astype(np.float32)
+    latents = _markers_on(model, betas, rng, MARKERS, device)
+    poses = np.zeros((frames, P), np.float32)
+    poses[:, :3] = _root_walk(rng, frames, 0.15, 0.02)
+    poses[:, body] = smooth_keys(keys, frames)
+    trans = np.cumsum(rng.normal(size=(frames, 3)) * 0.005, 0).astype(
+        np.float32)
+    return _problem_dict(model, prior, opts, betas, latents, poses, trans,
+                         device, family, **extra)
+
+
+def horse_problem(frames, device):
+    return animal_problem("animal_horse", frames, device)
+
+
+def dog_problem(frames, device):
+    return animal_problem("animal_dog", frames, device)
+
+
+def object_problem(frames, device):
+    """A rigid prop: tests/golden_common.py's icosphere scaled to 0.11 x
+    0.07 x 0.19 m, written as a PLY in a temporary directory and read back
+    with `load_rigid_object`, as a one-joint model
+    (`object_as_surface_model`); 10 markers, no prior, D=6; the rotation an
+    AR(1) walk, the translation a random walk."""
+    import tempfile
+    from moshpp_torch.io.ply import write_ply
+    from moshpp_torch.models.object_model import (load_rigid_object,
+                                                  object_as_surface_model)
+    from moshpp_torch.models.synthetic import icosphere
+    from moshpp_torch.pipeline.stageii import StageIIOptions
+
+    rng = np.random.default_rng(0)
+    sv, sf = icosphere(2)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "prop.ply")
+        write_ply(path, sv * np.asarray(OBJECT_SIZE_M), sf)
+        model = object_as_surface_model(load_rigid_object(path, device=device))
+    betas = np.zeros(model.num_betas, np.float32)
+    latents = _markers_on(model, betas, rng, OBJECT_MARKERS, device)
+    poses = _root_walk(rng, frames, 0.5, 0.05)
+    trans = np.cumsum(rng.normal(size=(frames, 3)) * 0.005, 0).astype(
+        np.float32)
+    return _problem_dict(model, None, StageIIOptions(maxiter=100,
+                                                     smoothing_sweeps=2),
+                         betas, latents, poses, trans, device, "object")
+
+
+def prior_on(bp, device):
+    """The problem's prior on `device`: the GMM's tensors moved, the horse's
+    callable rebuilt on its moved Mahalanobis prior, or None."""
+    from moshpp_torch.priors import mahalanobis
+    prior = bp["prior"]
+    if prior is None:
+        return None
+    if "horse" in bp:
+        src = bp["horse"]
+        return mahalanobis.horse_prior(dataclasses.replace(
+            src, mean=src.mean.to(device), prec=src.prec.to(device)))
+    return dataclasses.replace(prior, **{
+        f.name: getattr(prior, f.name).to(device)
+        for f in dataclasses.fields(prior)})
+
+
+def check_marker_kernels(bp, records, phase, suffix=""):
     """The fk_smalls and marker_rows variants of the problem's path (E=0 or
     E-carrying) against their plain versions at its shapes, and their
-    times."""
+    times; recorded under their names with `suffix` (e.g. "@horse")."""
     import torch
     from moshpp_torch.ops import marker_jac as mj
 
@@ -424,7 +637,7 @@ def check_marker_kernels(bp, records, phase):
 
     sms = {}
     for with_jac in (True, False):
-        name = mj._names(with_jac, route)[0]
+        name = mj._names(with_jac, route)[0] + suffix
         k = mj.fk_smalls(theta, tables, with_jac, extra)
         p = mj.fk_smalls_plain(theta, tables, with_jac, extra)
         errs = smalls_errors(name, k, p)
@@ -444,7 +657,7 @@ def check_marker_kernels(bp, records, phase):
         sms[with_jac] = k
 
     for with_jac in (True, False):
-        name, sm = mj._names(with_jac, route)[1], sms[with_jac]
+        name, sm = mj._names(with_jac, route)[1] + suffix, sms[with_jac]
         sim_k, jm_k = mj.marker_rows(sm, trans, tables, with_jac, extra)
         sim_p, jm_p = mj.marker_rows_plain(sm, trans, tables, with_jac, extra)
         torch.cuda.synchronize()
@@ -1115,11 +1328,9 @@ def card_solve(bp, opts):
     prob_g = stageii.problem_from_arrays(
         prob_c.sub_model, prob_c.indices.stacked.numpy(),
         prob_c.coeffs.numpy(), prob_c.betas.numpy(), opts, device="cuda")
-    prior_g = dataclasses.replace(
-        bp["prior"], **{f.name: getattr(bp["prior"], f.name).cuda()
-                        for f in dataclasses.fields(bp["prior"])})
     res = stageii.mosh_stageii_solve(prob_g, opts, bp["obs"].cuda(),
-                                     bp["mask"].cuda(), prior=prior_g,
+                                     bp["mask"].cuda(),
+                                     prior=prior_on(bp, "cuda"),
                                      model_type=bp["model_type"],
                                      device="cuda")
     torch.cuda.synchronize()
@@ -1327,7 +1538,9 @@ def phase_slice(bp, report, phase, names):
     v2v = torch.linalg.vector_norm(v_sol - v_true, dim=-1)
     body_vert = torch.argmax(model.weights, dim=1) < 1 + model.info.body_pose_dof // 3
     v2v_body = float(v2v[:, body_vert].mean()) * 1e3
-    v2v_hands = float(v2v[:, ~body_vert].mean()) * 1e3
+    # families without hands have no hand vertices
+    v2v_hands = (float(v2v[:, ~body_vert].mean()) * 1e3
+                 if bool((~body_vert).any()) else None)
     fps = FRAMES / dt
     out = dict(frames=FRAMES, solve_s=times, median_s=dt, frames_per_s=fps,
                mean_marker_err_mm=err_mm, v2v_body_mm=v2v_body,
@@ -1347,17 +1560,18 @@ def phase_slice(bp, report, phase, names):
         dmpl = (f"; expression rms err {out['expr_rms']:.4f} (truth rms "
                 f"{out['expr_true_rms']:.4f}), jaw rms err "
                 f"{out['jaw_rms']:.4f} rad")
+    hands = "" if v2v_hands is None else f", hands {v2v_hands:.4f} mm"
     log(f"phase {phase}: F={FRAMES} solve {dt:.3f} s median of "
         f"{[round(t, 3) for t in times]} -> {fps:.1f} frames/s; mean marker "
-        f"err {err_mm:.4f} mm; v2v body {v2v_body:.4f} mm, hands "
-        f"{v2v_hands:.4f} mm{dmpl}; host syncs per solve {res.host_syncs}; "
+        f"err {err_mm:.4f} mm; v2v body {v2v_body:.4f} mm{hands}{dmpl}; "
+        f"host syncs per solve {res.host_syncs}; "
         f"peak device memory {peak / 2**30:.4f} GiB ({base / 2**30:.4f} GiB "
         f"allocated as it began)")
     log(f"  launches in one solve: {launches}; plain versions on CUDA: "
         f"{plain_cuda}")
     report[f"slice {phase}"] = out
     assert torch.isfinite(res.markers_sim).all() and torch.isfinite(res.pose).all()
-    assert res.markers_sim.shape == (FRAMES, MARKERS, 3)
+    assert res.markers_sim.shape == bp["obs"].shape
     assert res.extra.shape == (FRAMES, E) and torch.isfinite(res.extra).all()
     for name in names:
         assert launches.get(name, 0) > 0, f"{name} never launched in the solve"
@@ -1366,8 +1580,161 @@ def phase_slice(bp, report, phase, names):
     return launches
 
 
+# the families' parity runs at the reference parity problem's size
+FAMILY_PARITY_FRAMES = 64
+# (label, problem, phase letter) of the families beyond SMPL+H / SMPL-X
+FAMILIES = (("horse", horse_problem, "e"), ("dog", dog_problem, "f"),
+            ("object", object_problem, "g"))
+
+
+def phase_family(label, make, letter, report, records):
+    """Phases 2e-4e (horse), 2f-4f (dog), 2g-4g (object): the five
+    main-path kernels at the family's shapes against their plain versions
+    (recorded as `<name>@<label>`), CPU-vs-card parity at
+    FAMILY_PARITY_FRAMES with the CPU floor gate of phases 3b-3c, and the
+    F=FRAMES slice. Returns the slice's launches."""
+    import torch
+    t0 = time.perf_counter()
+    bp = make(FRAMES, "cuda")
+    t = bp["prob"].tables
+    log(f"{label} problem: {bp['model_type']}, "
+        f"{bp['model'].v_template.shape[0]} verts, J={t.num_joints}, "
+        f"P={bp['model'].pose_dof}, D={t.dof}, featN={t.feat_n}, "
+        f"M={t.num_markers}, F={FRAMES}, prior "
+        f"{type(bp['prior']).__name__} ({time.perf_counter() - t0:.1f} s)")
+    suffix = f"@{label}"
+    check_marker_kernels(bp, records, "2" + letter, suffix)
+    check_direction(bp, records, suffix)
+    torch.cuda.empty_cache()
+    phase_parity(report, "3" + letter, (
+        (f"{label} problem", make, FAMILY_PARITY_FRAMES, True),))
+    counts = phase_slice(bp, report, "4" + letter, TPU_KERNELS)
+    del bp
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ~5.5 min at 120 Hz: an AMASS-length capture, past the default chunk size
+LONG_FRAMES = 40_000
+CHUNK_MEAN_MM = 0.05   # tests/test_pipeline.py's chunked-vs-unchunked bar
+CHUNK_SEAM_MM = 1.0
+
+
+def phase_long(report, frames=LONG_FRAMES, device="cuda"):
+    """Phase 5: the bench problem at LONG_FRAMES on the card, solved in one
+    batch and in chunks (the default chunk_frames and chunk_halo, with a
+    checkpoint directory), then the chunked solve again from its
+    checkpoints. Gates: the chunked run launches the five main-path
+    kernels; its mean marker error within CHUNK_MEAN_MM of the unchunked
+    solve's and within MAX_MEAN_ERR_MM; its largest marker deviation from
+    the unchunked solve on the seam frames (H either side of each seam)
+    within max(CHUNK_SEAM_MM, FLOOR_FACTOR x the wander between two
+    unchunked solves whose observations differ by 1e-7 m); the rerun makes
+    no inner solve (no launch, no host sync) and returns the first run's
+    arrays bit for bit. Returns the chunked run's launches."""
+    import tempfile
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.pipeline import stageii
+
+    t0 = time.perf_counter()
+    bp = bench_problem(frames, device)
+    opts = bp["opts"]
+    C, H = opts.chunk_frames, opts.chunk_halo
+    seams = list(range(C, frames, C))
+    log(f"phase 5: bench problem at F={frames}, chunk_frames={C}, "
+        f"chunk_halo={H}: {len(seams) + 1} chunks of {C + 2 * H} frames "
+        f"({time.perf_counter() - t0:.1f} s to build)")
+
+    def solve(o, obs):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = stageii.mosh_stageii_solve(bp["prob"], o, obs, bp["mask"],
+                                         prior=bp["prior"],
+                                         model_type=bp["model_type"],
+                                         device=device)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+    whole = dataclasses.replace(opts, chunk_frames=0)
+    res_full, t_full, mem_full = solve(whole, bp["obs"])
+    noise = 1e-7 * torch.randn(bp["obs"].shape, generator=torch.Generator()
+                               .manual_seed(FLOOR_SEEDS[0]))
+    res_full2, t_full2, _ = solve(whole, bp["obs"] + noise.to(device))
+    with tempfile.TemporaryDirectory() as ckpt:
+        chunked = dataclasses.replace(opts, checkpoint_dir=ckpt)
+        kernels.COUNTS.reset()
+        res_c, t_chunk, mem_chunk = solve(chunked, bp["obs"])
+        launches = dict(kernels.COUNTS.launches)
+        plain_cuda = dict(kernels.COUNTS.plain_cuda)
+        files = sorted(os.listdir(ckpt))
+        kernels.COUNTS.reset()
+        res_r, t_resume, _ = solve(chunked, bp["obs"])
+        resume_launches = sum(kernels.COUNTS.launches.values())
+    seam_ids = torch.as_tensor(np.concatenate(
+        [np.arange(s - H, s + H) for s in seams]), device=device)
+
+    def dev_mm(a, b, ids=None):
+        d = (a.markers_sim - b.markers_sim).abs()
+        return float((d if ids is None else d[ids]).max()) * 1e3
+
+    err = lambda r: float(r.data_err.mean()) * 1e3
+    out = dict(
+        frames=frames, chunk_frames=C, chunk_halo=H,
+        chunks=len(seams) + 1, checkpoint_files=files,
+        unchunked_s=t_full, unchunked_perturbed_s=t_full2, chunked_s=t_chunk,
+        resume_s=t_resume, peak_mem_gib_unchunked=mem_full / 2**30,
+        peak_mem_gib_chunked=mem_chunk / 2**30,
+        err_unchunked_mm=err(res_full), err_chunked_mm=err(res_c),
+        host_syncs_unchunked=res_full.host_syncs,
+        host_syncs_chunked=res_c.host_syncs,
+        host_syncs_resume=res_r.host_syncs,
+        seam_dev_mm=dev_mm(res_c, res_full, seam_ids),
+        all_dev_mm=dev_mm(res_c, res_full),
+        floor_mm=dev_mm(res_full2, res_full),
+        floor_seam_mm=dev_mm(res_full2, res_full, seam_ids),
+        launches=launches, plain_cuda=plain_cuda,
+        resume_launches=resume_launches)
+    out["seam_limit_mm"] = max(CHUNK_SEAM_MM, FLOOR_FACTOR * out["floor_mm"])
+    out["bit_for_bit"] = all(
+        torch.equal(getattr(res_c, f), getattr(res_r, f))
+        for f in stageii.StageIIResult._fields[:-1])
+    log(f"phase 5: unchunked {t_full:.2f} s ({frames / t_full:.1f} "
+        f"frames/s, peak {mem_full / 2**30:.3f} GiB, {res_full.host_syncs} "
+        f"host syncs), chunked {t_chunk:.2f} s ({frames / t_chunk:.1f} "
+        f"frames/s, peak {mem_chunk / 2**30:.3f} GiB, {res_c.host_syncs} host "
+        f"syncs), resumed from {len(files)} checkpoints in {t_resume:.3f} s "
+        f"({resume_launches} launches, {res_r.host_syncs} host syncs, bit for "
+        f"bit {out['bit_for_bit']})")
+    log(f"phase 5: mean marker err unchunked {out['err_unchunked_mm']:.4f} "
+        f"mm, chunked {out['err_chunked_mm']:.4f} mm; chunked vs unchunked "
+        f"max marker deviation on the {len(seam_ids)} seam frames "
+        f"{out['seam_dev_mm']:.4f} mm (all frames {out['all_dev_mm']:.4f}), "
+        f"floor (unchunked vs unchunked 1e-7 m apart) {out['floor_mm']:.4f} mm"
+        f" (seam frames {out['floor_seam_mm']:.4f}), limit "
+        f"{out['seam_limit_mm']:.4f} mm")
+    log(f"  launches in the chunked solve: {launches}")
+    report["long sequence 5"] = out
+    for r in (res_full, res_c):
+        assert torch.isfinite(r.markers_sim).all() and torch.isfinite(r.pose).all()
+        assert r.markers_sim.shape == bp["obs"].shape
+    for name in TPU_KERNELS:
+        assert launches.get(name, 0) > 0, f"{name} never launched in phase 5"
+    assert sum(plain_cuda.values()) == 0, plain_cuda
+    assert files == [f"chunk_{s:09d}.npz" for s in range(0, frames, C)]
+    assert abs(out["err_chunked_mm"] - out["err_unchunked_mm"]) <= CHUNK_MEAN_MM
+    assert max(out["err_chunked_mm"], out["err_unchunked_mm"]) <= MAX_MEAN_ERR_MM
+    assert out["seam_dev_mm"] <= out["seam_limit_mm"], out
+    assert resume_launches == 0 and res_r.host_syncs == 0, out
+    assert out["bit_for_bit"], "the resumed solve differs from the first"
+    del bp, res_full, res_full2, res_c, res_r
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
+    t_main = time.perf_counter()
 
     # ---- phase 0: the card ----------------------------------------------------
     if not torch.cuda.is_available():
@@ -1492,17 +1859,34 @@ def main():
         del p
         torch.cuda.empty_cache()
     phase_fold_parity(report, "3d", kept)
+    log(f"phases 0-4d: {time.perf_counter() - t_main:.1f} s")
+
+    # ---- the other families: phases 2e-4g; long sequences: phase 5 -------
+    launches_family = {}
+    for label, make, letter in FAMILIES:
+        t0 = time.perf_counter()
+        launches_family[label] = phase_family(label, make, letter, report,
+                                              records)
+        log(f"phases 2{letter}-4{letter} ({label}): "
+            f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_long(report)
+    log(f"phase 5: {time.perf_counter() - t0:.1f} s")
 
     kern = []
     records["pcg_direction"] = records["pcg_direction@D117"]
-    for table, counts in ((TPU_KERNELS, launches), (EXT_KERNELS, launches_ext),
-                          (TILED_KERNELS, launches_face),
-                          (FOLD_KERNELS, launches_fold),
-                          (PCG_KERNEL, {"pcg_direction": pcg_launches})):
+    tables = [(TPU_KERNELS, launches, ""), (EXT_KERNELS, launches_ext, ""),
+              (TILED_KERNELS, launches_face, ""),
+              (FOLD_KERNELS, launches_fold, ""),
+              (PCG_KERNEL, {"pcg_direction": pcg_launches}, "")]
+    tables += [(TPU_KERNELS, launches_family[label], f"@{label}")
+               for label, _, _ in FAMILIES]
+    for table, counts, suffix in tables:
         for name, (src, tpu) in table.items():
-            r = records[name]
-            kern.append({"name": name, "route": "cuda", "source": src,
-                         "replaces": tpu, "launches": counts[name],
+            r = records[name + suffix]
+            kern.append({"name": name + suffix, "route": "cuda",
+                         "source": src, "replaces": tpu,
+                         "launches": counts[name],
                          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                          "ms_device": r["ms_device"],
                          "plain_ms": r["plain_ms"],
@@ -1513,16 +1897,20 @@ def main():
             if "unfolded_ms" in r:
                 kern[-1]["unfolded_ms"] = r["unfolded_ms"]
                 kern[-1]["unfolded_ms_device"] = r["unfolded_ms_device"]
-    kern[-1]["note"] = ("no solve calls it: launches are its entry point's, "
-                        "pcg_direction_batched, on the three problems' "
-                        "rigid-init systems at 24 and 128 iterations (phase "
-                        "2d); times at D=117, 24 iterations")
+            if name == "pcg_direction":
+                kern[-1]["note"] = (
+                    "no solve calls it: launches are its entry point's, "
+                    "pcg_direction_batched, on the three problems' rigid-init "
+                    "systems at 24 and 128 iterations (phase 2d); times at "
+                    "D=117, 24 iterations")
     report["kernels"] = kern
     report["timings"] = records
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
+    report["seconds"] = time.perf_counter() - t_main
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
+    log(f"chip_smoke: {report['seconds']:.1f} s")
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,19 @@
 """Stage II — per-frame pose (+trans) estimation, batched over frames.
 
-Port of `moshpp_tpu/pipeline/stageii.py` for the main path: the unchunked
-`mosh_stageii_solve` schedule with a GMM (or no) body prior and per-frame
-extra shape dims riding shapedirs columns: with `optimize_dynamics` DMPL
+Port of `moshpp_tpu/pipeline/stageii.py`: the `mosh_stageii_solve`
+schedule for every family the JAX package solves (SMPL, SMPL+H, SMPL-X,
+MANO, the SMAL horse and dog, and a rigid object embedded as a one-joint
+model, `models/object_model.py`), with a body prior that is a GMM, a
+callable on one frame's body slice (the horse's), or none, on a contiguous
+or a gathered pose slice (the dog's 93 of 105 dofs), and per-frame extra
+shape dims riding shapedirs columns: with `optimize_dynamics` DMPL
 soft-tissue coefficients (columns [num_betas, num_betas + num_dmpls)), with
 `optimize_face` expressions (columns from `expr_start`, SMPL-X's 300) and
 the jaw. Any number of them: more than 16 take the marker kernels' tiled
-route. The frame axis is data-parallel exactly as in the JAX package:
+route. Sequences longer than `chunk_frames` solve in overlapping chunks,
+each kept to its interior, optionally checkpointed to `checkpoint_dir` and
+resumed from there. The frame axis is data-parallel exactly as in the JAX
+package:
 
   pass A: every S-th frame (anchor) gets the reference's first-frame
     treatment (rigid init, annealed prior solves [10w, 5w, w], a full-pose
@@ -26,16 +33,18 @@ blocks. The direction is the fused dogleg kernel
 (`solver/pcg.py`) in PCG phases and a batched Cholesky otherwise; on CUDA
 the polish runs deep PCG through the kernel.
 
-Not ported yet (raise NotImplementedError): chunked solves of long
-sequences, `return_report`, `on_phase`, `mesh`, callable priors and
-non-contiguous prior slices.
+Not ported yet (raise NotImplementedError): `return_report`, `on_phase`
+and `mesh`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+import hashlib
+import os
+import zipfile
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -91,9 +100,17 @@ class StageIIOptions:
     cg_iters_polish: int = 128
     anchor_stride: int = 8
     compact_buckets: Tuple[int, ...] = (2, 8, 32)
-    # sequences longer than this solve in chunks in the JAX package; the
-    # port runs one batch and raises beyond it
+    # sequences longer than this solve in overlapping chunks (0 = one batch
+    # whatever the length): each chunk covers [s - chunk_halo, s +
+    # chunk_frames + chunk_halo), edge-padded to that one width, and keeps
+    # its interior [s, s + chunk_frames); the halo gives seam frames the
+    # velocity sweeps' context on both sides
     chunk_frames: int = 16384
+    chunk_halo: int = 32
+    # resume long chunked runs: each solved chunk's interior is written here
+    # (an atomic npz fingerprinted by inputs and options), and a rerun skips
+    # the chunks it finds
+    checkpoint_dir: Optional[str] = None
     # fold the per-frame data weights and the residual into the marker
     # kernel (skips the (F, M, 3, D) weighting pass over the Jacobian)
     fold_weights: bool = False
@@ -244,7 +261,8 @@ def simulate_markers(prob: StageIIProblem, opts: StageIIOptions,
 
 
 class _TermSpec(NamedTuple):
-    body_rng: Optional[Tuple[int, int]]   # x-range of the prior's pose slice
+    body_ids: Optional[np.ndarray]        # x-indices of the prior's pose slice
+    body_rng: Optional[Tuple[int, int]]   # the same as a range, if contiguous
     finger_rng: Optional[Tuple[int, int]]  # x-range of the hand-PCA tail
     face_rng: Optional[Tuple[int, int]]   # x-range of the jaw
 
@@ -253,21 +271,20 @@ def _term_spec(prob: StageIIProblem, opts: StageIIOptions,
                model_type: str) -> _TermSpec:
     info = MODEL_TYPE_INFO[model_type]
     P = prob.sub_model.pose_dof
+    # the prior acts on the full (toes included) body slice, chmosh.py:614
     prior_pose = [i for i in pose_part_ids(model_type, optimize_toes=True)["body"]
                   if i >= 3]
-    body_rng = None
+    body_ids = body_rng = None
     if prior_pose:
-        ids = np.asarray(prior_pose)
-        if not np.all(np.diff(ids) == 1):
-            raise NotImplementedError(
-                f"{model_type}: non-contiguous prior slice is not ported yet")
-        body_rng = (3 + int(ids[0]), 3 + int(ids[-1]) + 1)
+        body_ids = 3 + np.asarray(prior_pose, np.int64)
+        if np.all(np.diff(body_ids) == 1):
+            body_rng = (int(body_ids[0]), int(body_ids[-1]) + 1)
     finger_rng = ((3 + info.body_pose_dof, 3 + P)
                   if (opts.optimize_fingers and info.has_hands) else None)
     face = pose_part_ids(model_type, optimize_toes=opts.optimize_toes)["face"]
     face_rng = ((3 + face[0], 3 + face[-1] + 1)
                 if (opts.optimize_face and face) else None)
-    return _TermSpec(body_rng, finger_rng, face_rng)
+    return _TermSpec(body_ids, body_rng, finger_rng, face_rng)
 
 
 def _velo_weight_vec(prob, opts, spec, device) -> torch.Tensor:
@@ -281,18 +298,28 @@ def _velo_weight_vec(prob, opts, spec, device) -> torch.Tensor:
     return torch.as_tensor(w, device=device)
 
 
+# a body prior: a max-mixture GMM, or a callable on one frame's body slice,
+# (bw,) -> (R,), whose rows the system squares (the horse's)
+Prior = Union[MaxMixturePrior, Callable[[torch.Tensor], torch.Tensor]]
+CALLABLE_PRIOR_RANGE = "stageii.callable_prior"
+
+
 def make_stageii_system(prob: StageIIProblem,
                         opts: StageIIOptions,
-                        prior: Optional[MaxMixturePrior],
+                        prior: Optional[Prior],
                         model_type: str) -> GNSystem:
     """Batched Gauss-Newton system (x (N, D), aux) -> (f, g, B (N, D, D)).
 
     aux values carry a leading N: markers (N, M, 3), mask (N, M), wt_data,
     anneal, wt_pose_scale (N,), velo_anchor (N, P), velo_on (N,) and, with
     DMPL dims, extra_anchor (N, E), extra_on (N,).
+
+    A GMM prior adds its selected component's quadratic form; a callable
+    prior r(xb) adds |w r|^2, w^2 J^T r and w^2 J^T J with J = dr/dxb, rows
+    and Jacobian of all N frames from one `vmap(jacfwd)`. The prior's slice
+    is a range of x or, where the family's prior covers a subset of joints
+    (the dog), gathered by index.
     """
-    if prior is not None and not isinstance(prior, MaxMixturePrior):
-        raise NotImplementedError("callable priors are not ported yet")
     spec = _term_spec(prob, opts, model_type)
     model = prob.sub_model
     tables = prob.tables
@@ -301,10 +328,57 @@ def make_stageii_system(prob: StageIIProblem,
     D = 3 + P + E
     wt = opts.wt
     velo_w = _velo_weight_vec(prob, opts, spec, prob.device)
-    use_prior = prior is not None and spec.body_rng is not None
-    if use_prior:
+    use_prior = prior is not None and spec.body_ids is not None
+    is_gmm = isinstance(prior, MaxMixturePrior)
+    if use_prior and is_gmm:
         # per-component precision quadratic 0.5 L Lᵀ, built once
         PP = 0.5 * torch.einsum("kde,kfe->kdf", prior.chols, prior.chols)
+    elif use_prior:
+        def rows_twice(xb):
+            r = prior(xb)
+            return r, r
+
+        prior_rows = torch.func.vmap(prior)
+        # the rows ride out as jacfwd's aux: one pass gives rows and Jacobian
+        prior_jac = torch.func.vmap(torch.func.jacfwd(rows_twice,
+                                                      has_aux=True))
+    ids = (None if spec.body_ids is None or spec.body_rng is not None
+           else torch.as_tensor(spec.body_ids, device=prob.device))
+
+    def body(x):
+        """The prior's pose slice of x (N, D)."""
+        if ids is None:
+            return x[:, spec.body_rng[0]:spec.body_rng[1]]
+        return x[:, ids]
+
+    def prior_terms(x, aux, f, cost_only: bool):
+        """f plus the prior's cost; unless `cost_only` also its gradient
+        (N, bw) and block (N, bw, bw) on the prior's slice."""
+        w = wt("poseB") * aux["anneal"] * aux["wt_pose_scale"]
+        w2 = w * w
+        xb = body(x)
+        if is_gmm:
+            k = select_component(prior, xb)
+            q = xb - prior.means[k]
+            PPk = PP[k]
+            gq = torch.bmm(PPk, q[..., None])[..., 0]
+            f = f + w2 * (torch.sum(q * gq, -1) + prior.sqrt_neg_log_w[k] ** 2)
+            if cost_only:
+                return f, None, None
+            return f, w2[:, None] * gq, w2[:, None, None] * PPk
+        # a profiler range (tools/profile_torch_slice.py reads its share);
+        # the slice made contiguous: on a strided one vmap(jacfwd)'s tangent
+        # product runs as cuBLAS's batched GEMV, ~5x slower on the H100
+        xb = xb.contiguous()
+        with torch.profiler.record_function(CALLABLE_PRIOR_RANGE):
+            if cost_only:
+                rp = prior_rows(xb)
+                return f + w2 * torch.sum(rp * rp, -1), None, None
+            Jp, rp = prior_jac(xb)                     # (N, R, bw), (N, R)
+            f = f + w2 * torch.sum(rp * rp, -1)
+            Jt = Jp.transpose(1, 2)
+            gb = w2[:, None] * torch.bmm(Jt, rp[..., None])[..., 0]
+            return f, gb, w2[:, None, None] * torch.bmm(Jt, Jp)
 
     def quad(x, aux, f, cost_only: bool):
         """Prior and regularizer terms: f, and unless `cost_only` their
@@ -314,18 +388,12 @@ def make_stageii_system(prob: StageIIProblem,
             g = torch.zeros_like(x)
             dvec = torch.zeros_like(x)
         if use_prior:
-            w = wt("poseB") * aux["anneal"] * aux["wt_pose_scale"]
-            w2 = w * w
-            s, e = spec.body_rng
-            xb = x[:, s:e]
-            k = select_component(prior, xb)
-            q = xb - prior.means[k]
-            PPk = PP[k]
-            gq = torch.bmm(PPk, q[..., None])[..., 0]
-            f = f + w2 * (torch.sum(q * gq, -1) + prior.sqrt_neg_log_w[k] ** 2)
+            f, gb, ppw = prior_terms(x, aux, f, cost_only)
             if not cost_only:
-                g[:, s:e] += w2[:, None] * gq
-                ppw = w2[:, None, None] * PPk
+                if ids is None:
+                    g[:, spec.body_rng[0]:spec.body_rng[1]] += gb
+                else:
+                    g[:, ids] += gb
 
         def diag(f, s, e, vals, w):
             w2 = w * w
@@ -378,8 +446,12 @@ def make_stageii_system(prob: StageIIProblem,
         # kernel reads only B's leading index
         B = P0 + P0.transpose(1, 2) + torch.diag_embed(dvec)
         if ppw is not None:
-            s, e = spec.body_rng
-            B[:, s:e, s:e] += ppw
+            if ids is None:
+                s, e = spec.body_rng
+                B[:, s:e, s:e] += ppw
+            else:
+                # the ids are distinct: the gathered add is a plain add
+                B[:, ids[:, None], ids[None, :]] += ppw
         return f, g0 + gq, B
 
     def cost_fn(x, aux):
@@ -489,7 +561,7 @@ def mosh_stageii_solve(prob: StageIIProblem,
                        opts: StageIIOptions,
                        markers_obs,
                        mask,
-                       prior: Optional[MaxMixturePrior] = None,
+                       prior: Optional[Prior] = None,
                        model_type: Optional[str] = None,
                        return_report: bool = False,
                        on_phase=None,
@@ -498,6 +570,7 @@ def mosh_stageii_solve(prob: StageIIProblem,
     """Solve all frames on `device` (the problem's device).
 
     markers_obs (F, M, 3) in meters and mask (F, M) bool, numpy or tensors.
+    More than `opts.chunk_frames` frames solve in chunks (`_solve_chunked`).
     """
     if return_report or on_phase is not None or mesh is not None:
         raise NotImplementedError(
@@ -505,14 +578,137 @@ def mosh_stageii_solve(prob: StageIIProblem,
     device = torch.device(device)
     if prob.device.type != device.type:
         raise ValueError(f"problem lives on {prob.device}, asked for {device}")
-    F = markers_obs.shape[0]
-    if opts.chunk_frames and F > opts.chunk_frames:
-        raise NotImplementedError(
-            f"{F} frames > chunk_frames={opts.chunk_frames}: chunked solves "
-            "are not ported yet")
+    model_type = model_type or prob.sub_model.model_type
+    if opts.chunk_frames and markers_obs.shape[0] > opts.chunk_frames:
+        return _solve_chunked(prob, opts, markers_obs, mask, prior,
+                              model_type, device)
     with _fp32_matmul():
-        return _solve(prob, opts, markers_obs, mask, prior,
-                      model_type or prob.sub_model.model_type, device)
+        return _solve(prob, opts, markers_obs, mask, prior, model_type,
+                      device)
+
+
+def _chunk_fingerprint(prob: StageIIProblem, inner_opts: StageIIOptions,
+                       prior, model_type: str, obs_c: np.ndarray,
+                       msk_c: np.ndarray) -> str:
+    """Content hash tying a chunk checkpoint to its inputs: the padded
+    window's observations and mask, the frozen problem (subset model,
+    marker frames, coefficients, betas), a GMM prior's arrays, the family
+    and every solver option. A stale checkpoint (edited mocap, other
+    weights, another model) fails the compare and the chunk re-solves. A
+    callable prior enters by its rows at a fixed probe point. The hash is
+    this package's own: a checkpoint the JAX package wrote never matches,
+    and re-solves."""
+    h = hashlib.sha1(b"moshpp_torch stage-ii chunk v1")
+    arrays = [getattr(prob.sub_model, f) for f in (
+        "v_template", "shapedirs", "posedirs", "weights", "joint_template",
+        "joint_shapedirs", "hands_components", "hands_mean")]
+    arrays += [prob.frame_c0, prob.frame_c1, prob.frame_c2, prob.coeffs,
+               prob.betas]
+    body_ids = _term_spec(prob, inner_opts, model_type).body_ids
+    if isinstance(prior, MaxMixturePrior):
+        arrays += [prior.means, prior.chols, prior.sqrt_neg_log_w]
+    elif prior is not None and body_ids is not None:
+        arrays.append(prior(torch.linspace(-0.5, 0.5, len(body_ids),
+                                           device=prob.device)))
+    for a in arrays:
+        h.update(a.detach().cpu().numpy().tobytes())
+    h.update(repr((prob.sub_model.parents, prob.sub_model.skin_k, model_type,
+                   dataclasses.replace(inner_opts, checkpoint_dir=None))
+                  ).encode())
+    h.update(obs_c.tobytes())
+    h.update(msk_c.tobytes())
+    return h.hexdigest()
+
+
+def _chunk_ckpt_load(path: str, fingerprint: str,
+                     device) -> Optional[StageIIResult]:
+    """A chunk's saved interior on `device`, or None when the file is
+    missing, stale or unreadable. A loaded chunk counts no host syncs."""
+    if not os.path.exists(path):
+        return None
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            if str(z["fingerprint"]) != fingerprint:
+                return None
+            return StageIIResult(
+                *[torch.as_tensor(z[f], device=device)
+                  for f in StageIIResult._fields[:-1]], host_syncs=0)
+    except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+        return None      # truncated or corrupt: a crash mid-write
+
+
+def _chunk_ckpt_save(path: str, fingerprint: str,
+                     piece: StageIIResult) -> None:
+    """Write a chunk's interior atomically: a crash never leaves a partial
+    file under the chunk's name."""
+    arrays = {"fingerprint": np.asarray(fingerprint)}
+    arrays.update({f: getattr(piece, f).detach().cpu().numpy()
+                   for f in StageIIResult._fields[:-1]})
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)
+
+
+def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
+                   device) -> StageIIResult:
+    """Overlapping-chunk drive of `mosh_stageii_solve` for long sequences
+    (`moshpp_tpu/pipeline/stageii.py:_solve_chunked`).
+
+    Each chunk covers [s - H, s + C + H) and is edge-padded at the tail to
+    the one window W = C + 2H, as in the JAX package: trajectories depend on
+    the batch's shape, so every chunk solves at the same shape. Only the
+    interior [s, s + C) of each solve is kept, so seam frames have H frames
+    of velocity-sweep context on both sides. Results are concatenated on
+    `device`; `host_syncs` is the sum over the chunks this call solved.
+    With `checkpoint_dir`, each chunk's interior is saved as
+    `chunk_{s:09d}.npz` and a rerun loads every chunk whose fingerprint
+    matches (`_chunk_fingerprint`) instead of solving it."""
+    F = markers_obs.shape[0]
+    C, H = int(opts.chunk_frames), int(opts.chunk_halo)
+    W = C + 2 * H
+    inner_opts = dataclasses.replace(opts, chunk_frames=0)
+    obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=device)
+    msk = torch.as_tensor(mask, device=device).to(torch.bool)
+    ckpt_dir = opts.checkpoint_dir
+    if ckpt_dir:
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+    pieces = []
+    for s in range(0, F, C):
+        lo, hi = max(0, s - H), min(F, s + C + H)
+        obs_c, msk_c = obs[lo:hi], msk[lo:hi]
+        pad = W - (hi - lo)
+        if pad:
+            # the window's last real frame repeated: the pad solves to that
+            # boundary pose (a stationary tail for the velocity term) and,
+            # but at the sequence's end, sits >= H frames from anything kept
+            obs_c = torch.cat([obs_c, obs_c[-1:].expand(pad, -1, -1)])
+            msk_c = torch.cat([msk_c, msk_c[-1:].expand(pad, -1)])
+        n_keep = min(C, F - s)
+        path = fp = None
+        if ckpt_dir:
+            fp = _chunk_fingerprint(prob, inner_opts, prior, model_type,
+                                    obs_c.cpu().numpy(), msk_c.cpu().numpy())
+            path = os.path.join(ckpt_dir, f"chunk_{s:09d}.npz")
+            piece = _chunk_ckpt_load(path, fp, device)
+            if piece is not None:
+                pieces.append(piece)
+                continue
+        res = mosh_stageii_solve(prob, inner_opts, obs_c, msk_c, prior=prior,
+                                 model_type=model_type, device=device)
+        take = slice(s - lo, s - lo + n_keep)
+        piece = StageIIResult(*[getattr(res, f)[take]
+                                for f in StageIIResult._fields[:-1]],
+                              host_syncs=res.host_syncs)
+        if ckpt_dir:
+            _chunk_ckpt_save(path, fp, piece)
+        pieces.append(piece)
+
+    return StageIIResult(
+        *[torch.cat([getattr(p, f) for p in pieces])
+          for f in StageIIResult._fields[:-1]],
+        host_syncs=sum(p.host_syncs for p in pieces))
 
 
 def _solve(prob, opts, markers_obs, mask, prior, model_type, device):

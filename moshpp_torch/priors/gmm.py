@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import pickle
+from typing import Optional
 
 import numpy as np
 import torch
@@ -22,6 +24,10 @@ class MaxMixturePrior:
     means: torch.Tensor           # (K, D)
     chols: torch.Tensor           # (K, D, D) cholesky factors of the precisions
     sqrt_neg_log_w: torch.Tensor  # (K,)
+
+    @property
+    def dim(self) -> int:
+        return self.means.shape[1]
 
 
 def gmm_prior_from_arrays(means, chols, sqrt_neg_log_w,
@@ -77,3 +83,75 @@ def make_gmm_prior(dim: int, num_components: int = 8, seed: int = 0,
     weights = rng.dirichlet(np.ones(num_components))
     return gmm_prior_from_arrays(*_from_moments(means, np.stack(covars),
                                                 weights), device=device)
+
+
+def load_gmm_prior(fname: str, npose: Optional[int] = None,
+                   *, device) -> MaxMixturePrior:
+    """Load a mixture prior file onto `device`.
+
+    Takes the formats of the JAX package's loader: the reference's
+    pose_body_prior.pkl dict ({'covars', 'means', 'weights'}), a pickled
+    object with sklearn-GMM attributes (means_, covars_, weights_), the dog
+    prior dict (gmm_means, gmm_covs, gmm_weights) and .npz. `npose` keeps
+    the leading npose dims (63 leaves out the hands)."""
+    if fname.endswith(".npz"):
+        with np.load(fname, allow_pickle=True) as z:
+            gmm = dict(z)
+    else:
+        with open(fname, "rb") as f:
+            gmm = pickle.load(f, encoding="latin-1")
+    if hasattr(gmm, "means_"):
+        means, covars, weights = gmm.means_, gmm.covars_, gmm.weights_
+    else:
+        key = lambda *ks: next(gmm[k] for k in ks if k in gmm)
+        means = key("means", "gmm_means")
+        covars = key("covars", "gmm_covs", "covs")
+        weights = key("weights", "gmm_weights")
+    means, covars = np.asarray(means), np.asarray(covars)
+    if npose is not None:
+        means = means[:, :npose]
+        covars = covars[:, :npose, :npose]
+    return gmm_prior_from_arrays(*_from_moments(means, covars,
+                                                np.asarray(weights)),
+                                 device=device)
+
+
+def sample_gmm_prior(prior: MaxMixturePrior, rng: np.random.Generator,
+                     n: int) -> np.ndarray:
+    """n pose slices (n, D) float32 drawn from the mixture the prior models,
+    with the JAX package's draws from `rng` (the same generator state gives
+    the same samples).
+
+    Synthetic ground truth must come from the distribution the prior was fit
+    to, as real mocap comes from the distribution of the reference's
+    AMASS-trained prior: poses from an unrelated distribution make the prior
+    adversarial and move the objective's optimum off the truth. `chols` are
+    Cholesky factors L of the precisions, so a sample is mean + L^-T z.
+    """
+    import scipy.linalg
+
+    means = prior.means.detach().cpu().numpy().astype(np.float64)
+    chols = prior.chols.detach().cpu().numpy().astype(np.float64)
+    K, D = means.shape
+    # sqrt_neg_log_w holds the weights divided by each component's
+    # normalizer (_from_moments); multiply sqrt(det cov_k) = 1/prod(diag
+    # L_k) back in (the constant factors cancel in the normalization)
+    w_stored = np.exp(-prior.sqrt_neg_log_w.detach().cpu().numpy().astype(
+        np.float64) ** 2)
+    w = w_stored / np.abs(np.prod(np.diagonal(chols, axis1=1, axis2=2),
+                                  axis=1))
+    w = w / w.sum()
+    comps = rng.choice(K, size=n, p=w)
+    z = rng.standard_normal((n, D))
+    out = np.empty((n, D), np.float64)
+    for i, k in enumerate(comps):
+        out[i] = means[k] + scipy.linalg.solve_triangular(
+            chols[k].T, z[i], lower=False)
+    return out.astype(np.float32)
+
+
+def save_gmm_prior_pkl(prior_moments: dict, fname: str) -> None:
+    """Write mixture moments ({'means', 'covars', 'weights'} or the dog's
+    keys) as the reference's pkl dict, e.g. for fixtures."""
+    with open(fname, "wb") as f:
+        pickle.dump(prior_moments, f)

@@ -41,17 +41,33 @@ def dev():
     return torch.device("cuda")
 
 
+def _object_model(device):
+    """A rigid prop as a one-joint model: zero-width posedirs, no hands."""
+    from moshpp_torch.models.object_model import (RigidObjectModel,
+                                                  object_as_surface_model)
+    from moshpp_torch.models.synthetic import icosphere
+    sv, sf = icosphere(3)
+    return object_as_surface_model(RigidObjectModel(
+        torch.as_tensor((sv * [0.11, 0.07, 0.19]).astype(np.float32),
+                        device=device),
+        torch.as_tensor(sf.astype(np.int64), device=device)))
+
+
 def _tables(family, dof_per_hand, M, device, seed=0, E=0):
-    """Tables of a 300-vertex model with 10 betas and, with E, E extra
-    (DMPL) columns right after them."""
+    """Tables of a 300-vertex model with 10 betas (the object: its one
+    shape column) and, with E, E extra (DMPL) columns right after them."""
     rng = np.random.default_rng(seed)
-    model = make_synthetic_model(family, num_verts=300, seed=4,
-                                 dof_per_hand=dof_per_hand, device=device,
-                                 num_shape_dirs=10 + E if E else None)
-    betas = torch.as_tensor((rng.normal(size=10) * 0.3).astype(np.float32),
+    if family == "object":
+        model = _object_model(device)
+    else:
+        model = make_synthetic_model(family, num_verts=300, seed=4,
+                                     dof_per_hand=dof_per_hand, device=device,
+                                     num_shape_dirs=10 + E if E else None)
+    nb = min(10, model.num_shape_dirs)
+    betas = torch.as_tensor((rng.normal(size=nb) * 0.3).astype(np.float32),
                             device=device)
     can_v = model.v_template + torch.einsum("vcb,b->vc",
-                                            model.shapedirs[..., :10], betas)
+                                            model.shapedirs[..., :nb], betas)
     vids = rng.choice(can_v.shape[0], M, replace=False)
     lat = can_v[vids] + 0.01
     idx = select_frame_indices(can_v, lat)
@@ -61,7 +77,8 @@ def _tables(family, dof_per_hand, M, device, seed=0, E=0):
 
 
 CASES = [("smplh", 6, 7), ("smplh", 24, 46), ("smpl", 0, 5), ("mano", 6, 7),
-         ("smplx", 24, 46)]
+         ("smplx", 24, 46), ("animal_horse", 0, 46), ("animal_dog", 0, 46),
+         ("object", 0, 10)]
 
 
 @pytest.mark.parametrize("family,dph,M", CASES)
@@ -364,14 +381,18 @@ def test_direction_kernel_matches_plain(dev, D, cond, iters):
                                     (33, 1e2), (206, 5.0), (239, 1e2),
                                     (240, 5.0), (241, 1e2),
                                     (pcg.MAX_DIRECTION_WIDTH, 5.0),
-                                    (pcg.MAX_DIRECTION_WIDTH, 1e2)])
+                                    (pcg.MAX_DIRECTION_WIDTH, 1e2),
+                                    (6, 5.0), (6, 1e2), (108, 5.0),
+                                    (108, 1e2), (111, 5.0), (111, 1e2)])
 @pytest.mark.parametrize("iters", [24, 128])
 def test_direction_kernel_ragged_widths(dev, D, cond, iters):
     """The direction kernel at widths where its warps end ragged (D=32, 33),
     at the widest D that holds the whole B (239), past it on the padded rows
-    (240, 241: 1 and 2 past a multiple of 4) and at the widest D, held as
+    (240, 241: 1 and 2 past a multiple of 4), at the widest D, and at the
+    other families' widths: the rigid object's D=6 (one system a block,
+    fewer unknowns than a warp), the dog's 108 and the horse's 111; held as
     test_direction_kernel_matches_plain holds it, against the float32
-    spread over three summation orders."""
+    spread over three summation orders (chip_smoke.py's gate)."""
     _check_direction(dev, D, cond, iters, orders=True)
 
 
@@ -829,3 +850,75 @@ def test_fold_and_pcg_wrappers_count_and_check(dev):
     assert kernels.COUNTS.launches[pcg.PCG_KERNEL] == 1
     with pytest.raises(ValueError, match="B: expected torch.float32"):
         pcg.pcg_direction_batched(g, B.double(), plin, 24)
+
+
+def _family_system(family, dev, seed=0):
+    """A small stage-ii problem of an animal family on `dev` and its prior:
+    the horse's callable (Mahalanobis rows and leg-bend rows) on the
+    contiguous 81-dof slice, the dog's GMM on its gathered 93 dofs."""
+    from moshpp_torch.models.body_model import pose_part_ids
+    from moshpp_torch.pipeline import stageii
+    from moshpp_torch.priors import gmm, mahalanobis
+    rng = np.random.default_rng(seed)
+    model = make_synthetic_model(family, num_verts=300, seed=4, device=dev)
+    betas = (rng.normal(size=16) * 0.3).astype(np.float32)
+    vids = rng.choice(model.v_template.shape[0], 20, replace=False)
+    lat = (model.v_template[vids] + 0.01).cpu().numpy()
+    opts = stageii.StageIIOptions()
+    prob = stageii.prepare_stageii_problem(model, betas, lat, opts,
+                                           device=dev)
+    dim = len(pose_part_ids(family, optimize_toes=True)["body"])
+    a = rng.normal(size=(dim, dim)) * 0.1
+    cov = 0.04 * (np.eye(dim) + a @ a.T)
+    if family == "animal_horse":
+        prior = mahalanobis.horse_prior(mahalanobis.mahalanobis_prior_from_arrays(
+            rng.normal(size=dim) * 0.1, np.linalg.cholesky(np.linalg.inv(cov)),
+            device=dev))
+    else:
+        prior = gmm.gmm_prior_from_arrays(*gmm._from_moments(
+            rng.normal(size=(3, dim)) * 0.1, np.stack([cov] * 3),
+            np.asarray([0.2, 0.3, 0.5])), device=dev)
+    return prob, opts, prior, rng
+
+
+@pytest.mark.parametrize("family", ["animal_horse", "animal_dog"])
+def test_family_system_card_matches_cpu(dev, family):
+    """The stage-ii system (f, g, B) and the trial-point cost with a
+    callable prior (the horse: vmap(jacfwd) on the card) and on a gathered
+    prior slice (the dog: 93 of 105 dofs), on the card through the kernels
+    against the same problem on the CPU, within 1e-4 of each output's
+    largest magnitude."""
+    from moshpp_torch.pipeline import stageii
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        prob, opts, prior, rng = _family_system(family, device)
+        spec = stageii._term_spec(prob, opts, family)
+        assert (spec.body_rng is None) == (family == "animal_dog")
+        N, D = 37, prob.tables.dof
+        M = prob.num_markers
+        aux = {"markers": rng.normal(size=(N, M, 3)) * 0.3,
+               "mask": (rng.uniform(size=(N, M)) > 0.1).astype(np.float32),
+               "wt_data": np.full(N, 400.0 * 46.0 / M),
+               "anneal": rng.uniform(1.0, 2.0, N),
+               "wt_pose_scale": rng.choice([1.0, 5.0, 10.0], N),
+               "velo_anchor": rng.normal(size=(N, D - 3)) * 0.1,
+               "velo_on": (np.arange(N) >= 2).astype(np.float32)}
+        taux = {k: torch.as_tensor(np.asarray(v, np.float32), device=device)
+                for k, v in aux.items()}
+        x = torch.as_tensor((rng.normal(size=(N, D)) * 0.3).astype(
+            np.float32), device=device)
+        system = stageii.make_stageii_system(prob, opts, prior, family)
+        kernels.COUNTS.reset()
+        f, g, B = system.system_fn(x, taux)
+        cost = system.cost_fn(x, taux)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert kernels.COUNTS.launches[mj.ROWS_JAC] == 1
+            assert kernels.COUNTS.launches[mj.ROWS_SIM] == 1
+            assert sum(kernels.COUNTS.plain_cuda.values()) == 0
+        out[device.type] = [t.cpu() for t in (f, g, B, cost)]
+    for name, a, r in zip(("f", "g", "B", "cost"), out["cuda"], out["cpu"]):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=1e-4 * float(r.abs().max()),
+                                   msg=name)

@@ -125,18 +125,14 @@ def test_solve_matches_jax(smplh):
 
 
 def test_unported_options_raise(smplh):
+    """Chunked solves and callable priors are ported (tests/
+    test_torch_chunked.py, tests/test_torch_families.py); telemetry is
+    not."""
     fp, (prob, opts, prior) = smplh
     with pytest.raises(NotImplementedError):
         stageii.mosh_stageii_solve(prob, opts, fp["obs"], fp["mask"],
                                    prior=prior, return_report=True,
                                    device="cpu")
-    # sequences longer than chunk_frames (chunked solves), callable priors
-    short = stageii.StageIIOptions(chunk_frames=2)
-    with pytest.raises(NotImplementedError):
-        stageii.mosh_stageii_solve(prob, short, fp["obs"], fp["mask"],
-                                   prior=prior, device="cpu")
-    with pytest.raises(NotImplementedError):
-        stageii.make_stageii_system(prob, opts, lambda xb: xb, "smplh")
 
 
 _IMPORT_ALL = """

@@ -2,7 +2,8 @@
 """Profile the PyTorch port's stage-ii slice on a CUDA card, or time it
 against another checkout of the port.
 
-    python tools/profile_torch_slice.py [--frames 4096] [--problem dmpl|face]
+    python tools/profile_torch_slice.py [--frames 4096]
+                                        [--problem dmpl|face|horse|dog|object]
                                         [--fold]
     python tools/profile_torch_slice.py --ab OTHER_CHECKOUT [--pairs 10]
     python tools/profile_torch_slice.py --kernel-ab OTHER_CHECKOUT [--pairs 10]
@@ -13,7 +14,10 @@ SMPL+H, 46 markers, maxiter 100, two smoothing sweeps, fingers free), or
 with `--problem dmpl` `chip_smoke.dmpl_problem` (the same with 8 DMPL
 soft-tissue coefficients a frame), or with `--problem face`
 `chip_smoke.face_problem` (SMPL-X with 80 expressions and the jaw, the
-tiled extras route). With `--fold` the solves run with
+tiled extras route), or the other families' problems
+(`chip_smoke.horse_problem`, `dog_problem`, `object_problem`: the SMAL
+horse with its callable prior, the dog with its GMM on a gathered pose
+slice, a rigid prop). With `--fold` the solves run with
 `StageIIOptions(fold_weights=True)`: the folded marker rows
 `marker_rows<jac,..,fold>` in place of the unfolded ones and their weighting
 pass.
@@ -28,7 +32,10 @@ traced solve's launches of each `fk_smalls` and `marker_rows`
 instantiation by frame count (the launch counters, `kernels.COUNTS.frames`)
 and, for `fk_smalls`, those counts times its device ms at each frame count:
 the solve's estimated `fk_smalls` time and the share of the small batches
-(F <= 513: the anchor pass and the compaction buckets).
+(F <= 513: the anchor pass and the compaction buckets). With a callable
+prior (the horse) the header also gives the device time under the
+system's `stageii.callable_prior` profiler range (its rows and Jacobian by
+vmap(jacfwd), and their products) and its share of the device time.
 
 A/B: one worker process per checkout (this one is A, OTHER_CHECKOUT is B),
 each with its own kernels and problem; after one warm-up solve each, solves
@@ -134,8 +141,11 @@ def profile(frames, problem, fold):
     by_frames = sorted(kernels.COUNTS.frames.items(),
                     key=lambda kv: (kv[0][0], -kv[0][1]))
     # kernel rows only: an aten op's row repeats its kernels' device time
+    from moshpp_torch.pipeline.stageii import CALLABLE_PRIOR_RANGE
+    # (a profiler range may also show as a device-side annotation row)
     rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key != CALLABLE_PRIOR_RANGE]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in rows) / 1e3     # ms
     head = (f"wall (untraced) {wall * 1e3:.1f} ms, wall (traced) "
@@ -143,6 +153,15 @@ def profile(frames, problem, fold):
             f"of the untraced wall {max(0.0, 1 - busy / (wall * 1e3)):.3f}), "
             f"peak device memory {peak:.2f} GiB, F={frames}, {problem} problem"
             f"{', folded weights' if fold else ''}")
+    ranges = [e for e in prof.key_averages()
+              if e.key == CALLABLE_PRIOR_RANGE
+              and e.device_type == torch.autograd.DeviceType.CPU]
+    if ranges:
+        prior_ms = sum(e.device_time_total for e in ranges) / 1e3
+        head += (f"; callable prior ({CALLABLE_PRIOR_RANGE}, "
+                 f"{sum(e.count for e in ranges)} calls) {prior_ms:.1f} ms "
+                 f"device, {100 * prior_ms / busy:.1f} % of the device busy "
+                 f"time")
     lines = [head, card] + [
         f"{e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}  {e.key[:120]}"
         for e in rows] + ["launches of the traced solve by frame count:"] + [
@@ -730,7 +749,8 @@ def main():
     ap.add_argument("--fk-frames", action="store_true",
                     help="time fk_smalls at each frames-a-block choice")
     ap.add_argument("--pairs", type=int, default=10)
-    ap.add_argument("--problem", choices=("bench", "dmpl", "face"),
+    ap.add_argument("--problem", choices=("bench", "dmpl", "face", "horse",
+                                          "dog", "object"),
                     default="bench")
     ap.add_argument("--fold", action="store_true",
                     help="solve with fold_weights=True")
