@@ -24,3 +24,9 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int,
         d = torch.where(exclude_mask[None, :], torch.inf, d)
     neg_d, idx = torch.topk(-d, k, dim=-1)
     return idx, -neg_d
+
+
+def nearest_vertex(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Index (Q,) of the nearest point for each query (the reference's
+    kd-tree snap of the latent markers to vertices)."""
+    return torch.argmin(_sq_dists(queries, points), dim=-1)

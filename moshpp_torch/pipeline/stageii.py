@@ -39,7 +39,6 @@ and `mesh`.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import os
@@ -65,7 +64,8 @@ from moshpp_torch.ops.rigid_align import kabsch
 from moshpp_torch.ops.rodrigues import rodrigues_inverse, slerp_axis_angle
 from moshpp_torch.priors.gmm import MaxMixturePrior, select_component
 from moshpp_torch.solver.gauss_newton import (DoglegOptions, GNSystem,
-                                              batched_system_solve)
+                                              batched_system_solve,
+                                              fp32_matmul)
 
 NUM_TRAIN_MARKERS = 46.0  # weight-normalization constant (chmosh.py:460)
 
@@ -212,7 +212,8 @@ def prepare_stageii_problem(model: SurfaceModel,
                             opts: StageIIOptions = StageIIOptions(),
                             exclude_vertex_mask: Optional[np.ndarray] = None,
                             *, device) -> StageIIProblem:
-    """Freeze the stage-i outputs into a solver context on `device`.
+    """Freeze the stage-i outputs (numpy or tensors, e.g. a `StageIResult`'s
+    `betas` and `markers_latent`) into a solver context on `device`.
 
     The latent markers' local frames come from the canonical shaped body;
     the model is then gathered to the union of frame vertices. Vertices in
@@ -220,8 +221,8 @@ def prepare_stageii_problem(model: SurfaceModel,
     SMPL-X eyeballs, as in the JAX package (none unless V = 10475).
     """
     model = model.to(device)
-    betas = torch.as_tensor(np.asarray(betas, np.float32), device=device)
-    lat = torch.as_tensor(np.asarray(markers_latent, np.float32), device=device)
+    betas = torch.as_tensor(betas, dtype=torch.float32, device=device)
+    lat = torch.as_tensor(markers_latent, dtype=torch.float32, device=device)
     nb = betas.shape[-1]
     can_verts = model.v_template + torch.einsum(
         "vcb,b->vc", model.shapedirs[..., :nb], betas)
@@ -542,21 +543,6 @@ def _velo_aux(x: torch.Tensor, P: int, dynamics: bool) -> dict:
     return out
 
 
-@contextlib.contextmanager
-def _fp32_matmul():
-    """Full-float32 products for the solve: TF32 off for cuBLAS and cuDNN,
-    restored afterwards."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def mosh_stageii_solve(prob: StageIIProblem,
                        opts: StageIIOptions,
                        markers_obs,
@@ -582,7 +568,7 @@ def mosh_stageii_solve(prob: StageIIProblem,
     if opts.chunk_frames and markers_obs.shape[0] > opts.chunk_frames:
         return _solve_chunked(prob, opts, markers_obs, mask, prior,
                               model_type, device)
-    with _fp32_matmul():
+    with fp32_matmul():
         return _solve(prob, opts, markers_obs, mask, prior, model_type,
                       device)
 

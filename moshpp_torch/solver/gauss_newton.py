@@ -1,10 +1,12 @@
 """Batched dogleg trust-region Gauss-Newton solver.
 
-Port of `moshpp_tpu/solver/gauss_newton.py` for the direct-assembly path
-(`GNSystem`), batched over a leading problem dimension. The JAX loop is a
-device `while_loop`; here it is a Python loop that reads the number of
-active problems on the host once per iteration — one device sync per
-iteration, counted in `SolveResult.host_syncs`.
+Port of `moshpp_tpu/solver/gauss_newton.py`, batched over a leading problem
+dimension. A problem comes either as a `GNSystem` that assembles (f, g, B)
+directly (stage ii) or as a residual function, whose Jacobian comes from
+forward-mode AD (`dogleg_solve`, `batched_dogleg_solve`: stage i). The JAX
+loop is a device `while_loop`; here it is a Python loop that reads the
+number of active problems on the host once per iteration — one device sync
+per iteration, counted in `SolveResult.host_syncs`.
 
 Straggler compaction (`batched_system_solve`): the full batch iterates while
 more than N/b problems are active (for each b of `compact_buckets`), then a
@@ -14,6 +16,7 @@ which finishes alone; the results are scattered back.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, NamedTuple, Optional, Tuple
 
@@ -72,6 +75,14 @@ def _bmv(B, v):
     return torch.bmm(B, v[..., None])[..., 0]
 
 
+# profiler ranges of the residual-driven system and of the Cholesky
+# direction (tools/profile_torch_slice.py --problem stagei reads them)
+JACOBIAN_RANGE = "gn.jacfwd"
+NORMAL_RANGE = "gn.normal_equations"
+CHOLESKY_RANGE = "gn.cholesky"
+
+
+@torch.profiler.record_function(CHOLESKY_RANGE)
 def _gn_direction_cholesky(g, B):
     """Exact GN direction via Cholesky: (p_gn (N, D), ok (N,))."""
     L, info = torch.linalg.cholesky_ex(B)
@@ -299,3 +310,80 @@ def batched_system_solve(system: GNSystem,
         s = inner
     return SolveResult(x=s.x, cost=s.f, iterations=s.it,
                        converged=s.converged, host_syncs=syncs)
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Full-float32 products for a solve: TF32 off for cuBLAS and cuDNN,
+    restored afterwards (the JAX package's "highest" matmul precision)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _residual_system(residual_fn: Callable, batched_aux: bool) -> GNSystem:
+    """A batched `GNSystem` from a residual r = residual_fn(x (D,), aux) of
+    one problem: r and J = dr/dx by `torch.func.jacfwd`, vmapped over the
+    batch (and over `aux`'s leading dim when `batched_aux`), then f = rᵀr,
+    g = Jᵀr and B = JᵀJ as float32 `bmm`s."""
+    def r_twice(x, aux):
+        r = residual_fn(x, aux)
+        return r, r
+
+    in_dims = (0, 0 if batched_aux else None)
+    jac = torch.func.vmap(torch.func.jacfwd(r_twice, has_aux=True),
+                          in_dims=in_dims)
+    res = torch.func.vmap(residual_fn, in_dims=in_dims)
+
+    def system_fn(x, aux):
+        with torch.profiler.record_function(JACOBIAN_RANGE):
+            J, r = jac(x, aux)
+        with torch.profiler.record_function(NORMAL_RANGE):
+            Jt = J.transpose(1, 2)
+            return (torch.sum(r * r, dim=-1),
+                    torch.bmm(Jt, r[..., None])[..., 0], torch.bmm(Jt, J))
+
+    def cost_fn(x, aux):
+        r = res(x, aux)
+        return torch.sum(r * r, dim=-1)
+
+    return GNSystem(system_fn, cost_fn)
+
+
+def batched_dogleg_solve(residual_fn: Callable, x0: torch.Tensor, aux,
+                         options: DoglegOptions = DoglegOptions(),
+                         param_mask: Optional[torch.Tensor] = None,
+                         e_3: Optional[float] = None) -> SolveResult:
+    """Minimize |residual_fn(x_n, aux_n)|^2 for every problem n of a batch.
+
+    residual_fn(x (D,), aux_slice) -> r (R,), traceable by `torch.func`;
+    `aux` is a dict of tensors with a leading N (or None); x0 (N, D);
+    param_mask (D,) or (N, D), zero entries frozen at x0; `e_3` overrides
+    `options.e_3`. Every problem iterates until all have stopped, each
+    frozen once it stops (no compaction, as in the JAX package)."""
+    system = _residual_system(residual_fn, batched_aux=aux is not None)
+    with fp32_matmul():
+        return batched_system_solve(system, x0, aux, options,
+                                    param_mask=param_mask, e_3=e_3,
+                                    compact_buckets=())
+
+
+def dogleg_solve(residual_fn: Callable[[torch.Tensor], torch.Tensor],
+                 x0: torch.Tensor,
+                 options: DoglegOptions = DoglegOptions(),
+                 param_mask: Optional[torch.Tensor] = None,
+                 e_3: Optional[float] = None) -> SolveResult:
+    """Minimize |residual_fn(x)|^2 from x0 (D,): `batched_dogleg_solve` on
+    a batch of one. The result's x is (D,), its cost, iterations and
+    converged flag scalars."""
+    res = batched_dogleg_solve(lambda x, _: residual_fn(x), x0[None], None,
+                               options, param_mask=param_mask, e_3=e_3)
+    return res._replace(x=res.x[0], cost=res.cost[0],
+                        iterations=res.iterations[0],
+                        converged=res.converged[0])

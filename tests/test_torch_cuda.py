@@ -922,3 +922,127 @@ def test_family_system_card_matches_cpu(dev, family):
         torch.testing.assert_close(a, r, rtol=0,
                                    atol=1e-4 * float(r.abs().max()),
                                    msg=name)
+
+
+# ---- stage i ----------------------------------------------------------------
+STAGEI_M, STAGEI_F = 12, 3
+
+
+def _stagei_world(seed=0, frames=STAGEI_F):
+    """A small stage-i subject (chip_smoke.stagei_world's generator on a
+    300-vertex SMPL+H with dof_per_hand=6, 12 markers) and the model and
+    prior, on the CPU."""
+    import chip_smoke
+    from moshpp_torch.priors.gmm import make_gmm_prior
+    model = make_synthetic_model("smplh", num_verts=300, seed=3,
+                                 dof_per_hand=6, device="cpu")
+    prior = make_gmm_prior(dim=63, num_components=3, seed=1, scale=0.3,
+                           device="cpu")
+    world = chip_smoke.stagei_world(seed, frames, model, prior)
+    rng = np.random.default_rng(seed)
+    keep = np.sort(rng.choice(chip_smoke.MARKERS, STAGEI_M, replace=False))
+    for k in ("vids", "latents"):
+        world[k] = world[k][keep]
+    world["obs"], world["mask"] = world["obs"][:, keep], world["mask"][:, keep]
+    return model, prior, world
+
+
+def _stagei_call(world, maxiter=40):
+    from moshpp_torch.pipeline.stagei import StageIOptions
+    M = len(world["vids"])
+    return ([f"M{i:02d}" for i in range(M)], world["vids"],
+            np.full(M, 0.0095, np.float32), {"body": np.ones(M, bool)},
+            StageIOptions(maxiter=maxiter))
+
+
+def _on(prior, device):
+    return dataclasses.replace(prior, **{
+        f.name: getattr(prior, f.name).to(device)
+        for f in dataclasses.fields(prior)})
+
+
+def test_stagei_step_card_matches_cpu(dev):
+    """chip_smoke.check_stagei_step on a small problem: the stage-i step
+    residual, its Jacobian (jacfwd, column by column), g = Jᵀr and B = JᵀJ
+    near the init state on the card, each within max(2e-4
+    (tests/test_goldens.py's probe tolerance), 4x the CPU float32 step's
+    own distance) of the float64 step on the CPU."""
+    import chip_smoke
+    from moshpp_torch.pipeline import stagei
+    model, prior, world = _stagei_world()
+    labels, vids, m2b, types, opts = _stagei_call(world)
+    ctxs = [stagei.prepare_stagei_context(
+        model.to(device), world["obs"], world["mask"], vids, m2b, types,
+        opts=opts, prior=_on(prior, device), device=device)
+        for device in (torch.device("cpu"), dev)]
+    (ctx_c, st_c), (ctx_g, _) = ctxs
+    fz = stagei._freeze_stagei_structure(ctx_c, st_c[0], st_c[1])
+    chip_smoke.check_stagei_step(ctx_c, fz, ctx_c.lay.pack(*st_c), ctx_g,
+                                 dev)
+
+
+def _stagei_outcome(res):
+    return [(r.errs["data_mean_m"], r.markers_latent.cpu().numpy())
+            for r in (res if isinstance(res, list) else [res])]
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_stagei_solve_card_matches_cpu(dev, batched):
+    """A small single (or two-subject batched) stage-i solve on the card
+    against the CPU's by chip_smoke.py's phase-6b gate: each subject's mean
+    data error within max(0.1 mm, 1.5 x the CPU floor), its latents within
+    max(0.5 mm, 1.5 x the floor), the floor being the largest difference
+    between any two of the CPU solve and three CPU solves whose
+    observations are moved by 1e-7 m."""
+    from moshpp_torch.pipeline import stagei
+    model, prior, world = _stagei_world()
+    labels, vids, m2b, types, opts = _stagei_call(world)
+    worlds = [world] + ([_stagei_world(1)[2]] if batched else [])
+
+    def solve(device, noise_seed=None):
+        obs = np.stack([w["obs"] for w in worlds])
+        if noise_seed is not None:
+            obs = obs + 1e-7 * np.random.default_rng(
+                noise_seed).standard_normal(obs.shape).astype(np.float32)
+        mask = np.stack([w["mask"] for w in worlds])
+        kw = dict(opts=opts, prior=_on(prior, device), device=device)
+        m = model.to(device)
+        if batched:
+            res = stagei.mosh_stagei_solve_batched(m, obs, mask, labels,
+                                                   vids, m2b, types, **kw)
+        else:
+            res = stagei.mosh_stagei_solve(m, obs[0], mask[0], labels, vids,
+                                           m2b, types, **kw)
+        return _stagei_outcome(res)
+
+    cpu = [solve("cpu", s) for s in (None, 7, 8, 9)]
+    card = solve(dev)
+    for s in range(len(worlds)):
+        d_err = lambda a, b: abs(a[s][0] - b[s][0]) * 1e3
+        d_lat = lambda a, b: float(np.abs(a[s][1] - b[s][1]).max()) * 1e3
+        pairs = [(a, b) for i, a in enumerate(cpu) for b in cpu[i + 1:]]
+        lim_err = max(0.1, 1.5 * max(d_err(a, b) for a, b in pairs))
+        lim_lat = max(0.5, 1.5 * max(d_lat(a, b) for a, b in pairs))
+        assert np.isfinite(card[s][0])
+        assert d_err(card, cpu[0]) <= lim_err, (s, d_err(card, cpu[0]))
+        assert d_lat(card, cpu[0]) <= lim_lat, (s, d_lat(card, cpu[0]))
+
+
+def test_stagei_batched_restrictions_on_card(dev):
+    """Quirks A and B raise on the card too: subjects of other frame counts
+    (ValueError with the restriction's sentence) and a subject whose shared
+    context differs (ValueError naming the field)."""
+    from moshpp_torch.pipeline import stagei
+    model, prior, world = _stagei_world()
+    labels, vids, m2b, types, opts = _stagei_call(world)
+    m, p = model.to(dev), _on(prior, dev)
+    with pytest.raises(ValueError, match="one layout and one frame count"):
+        stagei.mosh_stagei_solve_batched(
+            m, [world["obs"], world["obs"][:2]],
+            [world["mask"], world["mask"][:2]], labels, vids, m2b, types,
+            opts=opts, prior=p, device=dev)
+    ctx, _ = stagei.prepare_stagei_context(
+        m, world["obs"], world["mask"], vids, m2b, types, opts=opts, prior=p,
+        device=dev)
+    with pytest.raises(ValueError, match="m2b_j"):
+        stagei._check_shared([ctx, ctx._replace(m2b_j=ctx.m2b_j + 1.0)])

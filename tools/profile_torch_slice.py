@@ -5,6 +5,7 @@ against another checkout of the port.
     python tools/profile_torch_slice.py [--frames 4096]
                                         [--problem dmpl|face|horse|dog|object]
                                         [--fold]
+    python tools/profile_torch_slice.py --problem stagei
     python tools/profile_torch_slice.py --ab OTHER_CHECKOUT [--pairs 10]
     python tools/profile_torch_slice.py --kernel-ab OTHER_CHECKOUT [--pairs 10]
     python tools/profile_torch_slice.py --fk-frames
@@ -36,6 +37,13 @@ the solve's estimated `fk_smalls` time and the share of the small batches
 prior (the horse) the header also gives the device time under the
 system's `stageii.callable_prior` profiler range (its rows and Jacobian by
 vmap(jacfwd), and their products) and its share of the device time.
+
+Stage i (`--problem stagei`): one solve of chip_smoke.py's phase-6c
+problem after a warm-up, untraced and traced: the device time under the
+profiler ranges of the Jacobian (`gn.jacfwd`), the normal equations
+(`gn.normal_equations`), the Cholesky direction (`gn.cholesky`) and the
+freeze (`stagei.freeze`), the kernel table, the idle share, host syncs,
+iterations and peak memory, to chiprun_out/profile_stagei.txt.
 
 A/B: one worker process per checkout (this one is A, OTHER_CHECKOUT is B),
 each with its own kernels and problem; after one warm-up solve each, solves
@@ -90,9 +98,9 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _setup(repo, frames, problem="bench", fold=False):
-    """Import the port from `repo` and build the problem on the card; with
-    `fold` its solves fold the data weights into the marker kernel."""
+def _chip_smoke(repo):
+    """Import the port from `repo` and this checkout's chip_smoke.py, TF32
+    off."""
     sys.path.insert(0, repo)
     import importlib.util
     import torch
@@ -102,6 +110,14 @@ def _setup(repo, frames, problem="bench", fold=False):
     spec.loader.exec_module(cs)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return cs
+
+
+def _setup(repo, frames, problem="bench", fold=False):
+    """Import the port from `repo` and build the problem on the card; with
+    `fold` its solves fold the data weights into the marker kernel."""
+    import torch
+    cs = _chip_smoke(repo)
     bp = getattr(cs, f"{problem}_problem")(frames, "cuda")
     from moshpp_torch.pipeline import stageii
     if fold:
@@ -174,6 +190,66 @@ def profile(frames, problem, fold):
     with open(os.path.join(out, name), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines[:30] + lines[len(rows) + 2:]))
+
+
+def profile_stagei():
+    """One stage-i solve of chip_smoke.py's phase-6c problem (the
+    tools/bench_stagei.py protocol) after a warm-up, untraced and under
+    torch.profiler: the device time under each profiler range (the
+    Jacobian by jacfwd, the normal equations' bmm, the Cholesky direction,
+    the host-side freeze), the kernel table, the idle share of the
+    untraced wall, host syncs, iterations and peak device memory; the table
+    to chiprun_out/profile_stagei.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    cs = _chip_smoke(REPO)
+    from moshpp_torch.pipeline.stagei import FREEZE_RANGE
+    from moshpp_torch.solver.gauss_newton import (CHOLESKY_RANGE,
+                                                  JACOBIAN_RANGE,
+                                                  NORMAL_RANGE)
+    card = cs.card_line()
+    model_c, prior_c = cs.stagei_model("cpu")
+    world = cs.stagei_world(0, cs.STAGEI_FRAMES, model_c, prior_c)
+    model = model_c.to("cuda")
+    prior = cs.prior_on(dict(prior=prior_c), "cuda")
+    solve = lambda: cs.stagei_solve(world, model, prior, "cuda")
+    solve()
+    torch.cuda.reset_peak_memory_stats()
+    wall, res = _timed(solve)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        traced, res_t = _timed(solve)
+    names = (JACOBIAN_RANGE, NORMAL_RANGE, CHOLESKY_RANGE, FREEZE_RANGE)
+    events = prof.key_averages()
+    rows = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in names]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3     # ms
+    ranges = []
+    for name in names:
+        ev = [e for e in events if e.key == name
+              and e.device_type == torch.autograd.DeviceType.CPU]
+        dev_ms = sum(e.device_time_total for e in ev) / 1e3
+        cpu_ms = sum(e.cpu_time_total for e in ev) / 1e3
+        ranges.append(f"  {name}: {sum(e.count for e in ev)} calls, "
+                      f"{dev_ms:.1f} ms device ({100 * dev_ms / busy:.1f} % "
+                      f"of busy), {cpu_ms:.1f} ms host")
+    head = (f"stage i: wall (untraced) {wall * 1e3:.1f} ms, wall (traced) "
+            f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms (idle share "
+            f"of the untraced wall {max(0.0, 1 - busy / (wall * 1e3)):.3f}), "
+            f"peak device memory {peak:.2f} GiB, host syncs {res.host_syncs}"
+            f", iterations {res.iterations} (traced {res_t.iterations}), "
+            f"{cs.STAGEI_FRAMES} frames, {cs.MARKERS} markers")
+    lines = [head, card, "profiler ranges:"] + ranges + [
+        f"{e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}  {e.key[:120]}"
+        for e in rows]
+    out = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "profile_stagei.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    print("\n".join(lines[:40]))
 
 
 def _fk_buckets(cs, bp, by_frames, small=513):
@@ -750,7 +826,7 @@ def main():
                     help="time fk_smalls at each frames-a-block choice")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--problem", choices=("bench", "dmpl", "face", "horse",
-                                          "dog", "object"),
+                                          "dog", "object", "stagei"),
                     default="bench")
     ap.add_argument("--fold", action="store_true",
                     help="solve with fold_weights=True")
@@ -767,6 +843,8 @@ def main():
         kernel_ab(a.kernel_ab, a.pairs)
     elif a.fk_frames:
         fk_frames()
+    elif a.problem == "stagei":
+        profile_stagei()
     else:
         profile(a.frames, a.problem, a.fold)
 
