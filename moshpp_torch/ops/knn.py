@@ -1,5 +1,5 @@
 """Brute-force k-nearest-neighbour queries (port of `moshpp_tpu/ops/knn.py`):
-a dense distance matrix and `torch.topk`."""
+a dense distance matrix and a stable sort."""
 
 from __future__ import annotations
 
@@ -14,6 +14,17 @@ def _sq_dists(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     return qq - 2.0 * (queries @ points.T) + pp[None, :]
 
 
+def smallest_k(d: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k smallest entries of each row of d,
+    ascending, equal values in index order: `jax.lax.top_k` of -d. The
+    synthetic meshes are symmetric, so exact ties are common, and
+    `torch.topk` orders them otherwise (a marker's frame vertices then
+    differ from the JAX package's)."""
+    vals, idx = torch.sort(d, dim=-1, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def knn(queries: torch.Tensor, points: torch.Tensor, k: int,
         exclude_mask: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -22,8 +33,8 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int,
     d = _sq_dists(queries, points)
     if exclude_mask is not None:
         d = torch.where(exclude_mask[None, :], torch.inf, d)
-    neg_d, idx = torch.topk(-d, k, dim=-1)
-    return idx, -neg_d
+    d_k, idx = smallest_k(d, k)
+    return idx, d_k
 
 
 def nearest_vertex(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:

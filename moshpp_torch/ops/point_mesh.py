@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from moshpp_torch.ops.knn import smallest_k
 from moshpp_torch.ops.surface import face_cross, vertex_normals
 
 _EPS = 1e-12
@@ -128,7 +129,7 @@ def nearest_on_mesh(points: torch.Tensor, verts: torch.Tensor,
         centroids = (a_all + b_all + c_all) / 3.0
         pp = torch.sum(centroids * centroids, dim=-1)
         d_cent = pp[None, :] - 2.0 * (points @ centroids.T)
-        _, cand = torch.topk(-d_cent, prefilter_k, dim=-1)      # (P, k)
+        _, cand = smallest_k(d_cent, prefilter_k)               # (P, k)
         a, b, c = a_all[cand], b_all[cand], c_all[cand]
     else:
         cand = None

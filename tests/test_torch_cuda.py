@@ -930,8 +930,9 @@ STAGEI_M, STAGEI_F = 12, 3
 
 def _stagei_world(seed=0, frames=STAGEI_F):
     """A small stage-i subject (chip_smoke.stagei_world's generator on a
-    300-vertex SMPL+H with dof_per_hand=6, 12 markers) and the model and
-    prior, on the CPU."""
+    300-vertex SMPL+H with dof_per_hand=6, the same 12 of its markers for
+    every seed: subjects share one layout) and the model and prior, on the
+    CPU."""
     import chip_smoke
     from moshpp_torch.priors.gmm import make_gmm_prior
     model = make_synthetic_model("smplh", num_verts=300, seed=3,
@@ -939,8 +940,8 @@ def _stagei_world(seed=0, frames=STAGEI_F):
     prior = make_gmm_prior(dim=63, num_components=3, seed=1, scale=0.3,
                            device="cpu")
     world = chip_smoke.stagei_world(seed, frames, model, prior)
-    rng = np.random.default_rng(seed)
-    keep = np.sort(rng.choice(chip_smoke.MARKERS, STAGEI_M, replace=False))
+    keep = np.sort(np.random.default_rng(0).choice(
+        chip_smoke.MARKERS, STAGEI_M, replace=False))
     for k in ("vids", "latents"):
         world[k] = world[k][keep]
     world["obs"], world["mask"] = world["obs"][:, keep], world["mask"][:, keep]
@@ -989,11 +990,12 @@ def _stagei_outcome(res):
 @pytest.mark.parametrize("batched", [False, True])
 def test_stagei_solve_card_matches_cpu(dev, batched):
     """A small single (or two-subject batched) stage-i solve on the card
-    against the CPU's by chip_smoke.py's phase-6b gate: each subject's mean
-    data error within max(0.1 mm, 1.5 x the CPU floor), its latents within
-    max(0.5 mm, 1.5 x the floor), the floor being the largest difference
-    between any two of the CPU solve and three CPU solves whose
-    observations are moved by 1e-7 m."""
+    against the CPU's: each subject's mean data error within max(0.1 mm,
+    1.5 x the CPU floor), its latents within max(0.5 mm, 1.5 x the floor),
+    the floor being the largest difference between any two of the CPU
+    solve and three CPU solves whose observations are moved by 1e-7 m (no
+    JAX on the card's machine; chip_smoke.py's phase 6b holds its
+    full-width solve to the JAX package's spread instead)."""
     from moshpp_torch.pipeline import stagei
     model, prior, world = _stagei_world()
     labels, vids, m2b, types, opts = _stagei_call(world)
@@ -1046,3 +1048,26 @@ def test_stagei_batched_restrictions_on_card(dev):
         device=dev)
     with pytest.raises(ValueError, match="m2b_j"):
         stagei._check_shared([ctx, ctx._replace(m2b_j=ctx.m2b_j + 1.0)])
+
+
+def test_knn_ties_card_matches_cpu(dev):
+    """knn on exact ties (an integer grid, every distance exact in float32)
+    on the card: the CPU's indices and distances bit for bit, equal values
+    in index order as in the JAX package; nearest_on_mesh's closest points
+    through the prefilter within 1e-6 m of the CPU's."""
+    from moshpp_torch.ops.knn import knn
+    from moshpp_torch.ops.point_mesh import nearest_on_mesh
+    from moshpp_torch.models.synthetic import icosphere
+    g = torch.arange(5, dtype=torch.float32)
+    pts = torch.stack(torch.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    q = torch.tensor([[2, 2, 2], [1.5, 2, 2], [1.5, 1.5, 2], [0, 0, 0]])
+    i_c, d_c = knn(q, pts, k=12)
+    i_g, d_g = knn(q.to(dev), pts.to(dev), k=12)
+    assert torch.equal(i_g.cpu(), i_c) and torch.equal(d_g.cpu(), d_c)
+    v, f = icosphere(2)
+    v = torch.as_tensor(v.astype(np.float32))
+    f = torch.as_tensor(f.astype(np.int64))
+    p = torch.tensor([[0.0, 0.0, 1.3], [0.0, 0.0, -0.7], [0.5, 0.5, 0.5]])
+    n_c = nearest_on_mesh(p, v, f, prefilter_k=16)
+    n_g = nearest_on_mesh(p.to(dev), v.to(dev), f.to(dev), prefilter_k=16)
+    torch.testing.assert_close(n_g.point.cpu(), n_c.point, rtol=0, atol=1e-6)

@@ -227,3 +227,26 @@ def test_nearest_vertex_matches_jax(mesh):
     ref = jax_nearest_vertex(jnp.asarray(pts), jnp.asarray(v))
     out = nearest_vertex(torch.as_tensor(pts), torch.as_tensor(v))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+def test_knn_orders_ties_as_jax():
+    """knn and the prefilter's smallest_k on exact ties: points of an
+    integer grid and queries on and between them (every distance exact in
+    float32), so that most of the k nearest tie. The port returns JAX's
+    order (lower index first) and the same distances, bit for bit."""
+    from moshpp_tpu.ops.knn import knn as jax_knn
+    from moshpp_torch.ops.knn import knn, smallest_k
+    g = np.arange(5, dtype=np.float32)
+    pts = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    queries = np.array([[2, 2, 2], [1.5, 2, 2], [1.5, 1.5, 2],
+                        [1.5, 1.5, 1.5], [0, 0, 0], [4, 2, 0.5]], np.float32)
+    ji, jd = jax_knn(jnp.asarray(queries), jnp.asarray(pts), k=12)
+    ti, td = knn(torch.as_tensor(queries), torch.as_tensor(pts), k=12)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    d = np.round(np.random.default_rng(0).uniform(0, 4, (6, 50)))
+    d = d.astype(np.float32)
+    jv, jidx = jax.lax.top_k(-jnp.asarray(d), 20)
+    tv, tidx = smallest_k(torch.as_tensor(d), 20)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(tv.numpy(), -np.asarray(jv))

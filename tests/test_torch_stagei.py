@@ -72,6 +72,9 @@ JAC_TOL = 1e-4
 # candidate faces may differ only where rounding swaps a near-tie at the
 # last rank: squared distances within this of the last kept one (m^2)
 SWAP_GAP_M2 = 1e-10
+# a marker's frame vertices may differ from JAX's only at near-ties: JAX's
+# squared distances (float64) of the two vertices within this (m^2)
+TIE_GAP_M2 = 1e-6
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -504,3 +507,61 @@ def test_layout_and_frames_match_jax():
     for o, r in zip(frames_to_arrays(frames, labels),
                     jax_frames_to_arrays(frames, labels)):
         np.testing.assert_array_equal(o, r)
+
+
+def test_chip_smoke_world_matches_bench_stagei():
+    """chip_smoke.stagei_world, the port's copy of tools/bench_stagei.py's
+    `_make_world`, gives the tool's arrays on the same seeds at full width
+    (dof_per_hand=24, 16 betas, 46 markers, 12 frames; 642 vertices): the
+    layout vertices, betas and motion exactly, the latent markers within
+    1e-6 m (float32 rounding of coordinates ~1 m). Each marker's frame
+    vertices, chosen by each package on its own canonical vertices, agree
+    but where JAX's squared distances of the swapped vertices lie within
+    TIE_GAP_M2 (the float32 resolution of |q|^2 - 2 q.p + |p|^2 at ~1 m;
+    the icosphere's symmetry makes such near-ties common); the observations
+    of the markers whose frames agree within 1e-5 m (the posed vertices
+    agree within 3e-7 m, and a marker's local frame amplifies that ~20x)."""
+    import argparse
+    import sys
+    sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
+    import chip_smoke
+    from bench_stagei import _make_world
+    from moshpp_tpu.priors import make_gmm_prior as jax_gmm_prior
+    from moshpp_torch.models import make_synthetic_model
+    from moshpp_torch.ops.marker_transform import select_frame_indices
+    from moshpp_torch.priors.gmm import make_gmm_prior
+
+    kw = dict(num_verts=642, seed=3, dof_per_hand=24)
+    jmodel = jax_synthetic_model("smplh", **kw)
+    jprior = jax_gmm_prior(dim=63, num_components=8, seed=1, scale=0.3)
+    model = make_synthetic_model("smplh", device="cpu", **kw)
+    prior = make_gmm_prior(dim=63, num_components=8, seed=1, scale=0.3,
+                           device="cpu")
+    for seed in (0, 2, 5, 7):
+        ref = _make_world(argparse.Namespace(
+            frames=12, markers=chip_smoke.MARKERS, seed=seed), jmodel,
+            jprior, jnp, jax)
+        out = chip_smoke.stagei_world(seed, 12, model, prior)
+        for k in ("vids", "betas", "poses", "trans"):
+            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+        np.testing.assert_allclose(out["latents"], ref["latents"], rtol=0,
+                                   atol=1e-6)
+        can_j = np.asarray(jmodel.v_template) + np.einsum(
+            "vcb,b->vc", np.asarray(jmodel.shapedirs)[..., :16], ref["betas"])
+        idx_j = np.asarray(jax_select_frame_indices(
+            jnp.asarray(can_j), jnp.asarray(ref["latents"])).stacked)
+        can_t = model.v_template + torch.einsum(
+            "vcb,b->vc", model.shapedirs[..., :16],
+            torch.as_tensor(out["betas"]))
+        idx_t = select_frame_indices(
+            can_t, torch.as_tensor(out["latents"])).stacked.numpy()
+        same = (idx_j == idx_t).all(1)
+        d64 = lambda m, v: float(np.sum(
+            (can_j[v].astype(np.float64) - ref["latents"][m]) ** 2))
+        for m in np.where(~same)[0]:
+            for a, b in zip(idx_j[m], idx_t[m]):
+                assert abs(d64(m, a) - d64(m, b)) <= TIE_GAP_M2, (
+                    seed, m, idx_j[m], idx_t[m])
+        assert out["obs"].shape == ref["obs"].shape
+        np.testing.assert_allclose(out["obs"][:, same], ref["obs"][:, same],
+                                   rtol=0, atol=1e-5)
