@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Drive the PyTorch port's stage-ii slice and stage i on one NVIDIA H100.
+"""Drive the PyTorch port's stage-ii slice, stage i and the head on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -80,7 +81,25 @@ Phases, each failing loudly (exception, nonzero exit, no ok line):
      problem, the recovery metrics, host syncs, iterations, peak memory);
      6d eight subjects in one batched solve against their single solves;
      6e 6c's betas and latent markers chained into stage ii at F=4096 of
-     the same subject, every E=0 kernel launched.
+     the same subject, every E=0 kernel launched;
+  7. the head (`moshpp_torch.pipeline.head`), from C3D files on disk to an
+     AMASS npz, at the bench's width (`head_world`: a synthetic SMPL+H of
+     10242 vertices saved as npz, the bench's 8-component GMM as the
+     reference's pkl, a 46-marker body layout JSON, a session of two
+     captures, walk.c3d at F=4096 and jog.c3d at F=1024, 120 Hz, in mm,
+     with short dropouts), the config's defaults but the model, the layout
+     and no hand prior: 7a the C3D codec (the native decoder must load;
+     read-back bit for bit); 7b a cold `run_moshpp_once` on the card
+     (stage i from 12 frames picked by `random_strict`, stage ii of
+     walk.c3d at F=4096 with the per-phase report): the pickles' key
+     schema, the layout's JSON, PLY and C3D, the mean marker error held to
+     the JAX head's on the same session (`tools/head_reference.py`),
+     `mosh_stageii_solve` on the head's inputs bit for bit the head's
+     result, every E=0 kernel launched; 7c the cached rerun (no
+     launch, under 2 s); 7d the AMASS and legacy exporters; 7e `python -m
+     moshpp_torch run`, `info` and `run-many` in fresh interpreters (no
+     JAX imported there); 7f the head's stage ii of the first 256 frames
+     on the CPU against the card, phase 3's gate with its floor.
 
 Every kernel entry carries its bound: the least time the card could take
 for the call, the larger of its bytes (each input read once, each output
@@ -2313,6 +2332,504 @@ def phase_stagei(report, device="cuda"):
     return launches
 
 
+# ---- phase 7: the head, from C3D files to AMASS npz -------------------------
+HEAD_FRAMES = {"walk": FRAMES, "jog": 1024}   # the session's two captures
+HEAD_RATE = 120.0
+HEAD_DIR = os.path.join(REPO, ".chipwork", "head")
+# markers with dropout windows in walk.c3d and jog.c3d: (marker, first frame,
+# frames) in walk; jog takes the same at a quarter of the frame numbers
+HEAD_DROPOUTS = ((3, 400, 30), (17, 1800, 12), (17, 2900, 60), (30, 3500, 8))
+# 7b's stage-ii mean marker error is held to the JAX head's on the same
+# session (`tools/head_reference.py`, on the CPU): within max(HEAD_REF_MM,
+# FLOOR_FACTOR x the JAX head's spread, the largest difference of its runs
+# with both stages' observations moved by 1e-7 m, seeds 7-11). The bar of
+# examples/synthetic_end_to_end.py (2.0 mm, 20 markers on a 642-vertex
+# model) is read beside it: at the bench's width with 46 markers the JAX
+# head misses it too (stage i leaves ~4 mm; PERF.md, PR 10)
+# (`python tools/head_reference.py --seeds 5`, on the CPU: the JAX head's
+# runs read 4.8823 mm, and 5.2105, 4.8484, 4.8461, 4.7311, 3.3391 mm with
+# noise seeds 7-11; their stage i 4.7641 mm, and 5.1974-9.2061 mm)
+JAX_HEAD_ERR_MM = 4.8823
+JAX_HEAD_SPREAD_MM = 1.5432
+HEAD_REF_MM = 0.5
+HEAD_MEAN_MM = 2.0
+HEAD_PARITY_FRAMES = 256
+HEAD_CACHED_S = 2.0
+# the pickles' top-level and debug keys: the JAX head's schema
+# (moshpp_tpu/pipeline/head.py:286-306, 395-417; tests/test_torch_head.py
+# holds these lists to the JAX head's pickles)
+HEAD_STAGEI_KEYS = ("betas", "latent_labels", "marker_meta",
+                    "markers_latent", "markers_latent_vids",
+                    "stagei_debug_details")
+HEAD_STAGEI_DEBUG_KEYS = ("cfg", "opt_models_pose", "opt_models_trans",
+                          "stagei_elapsed_time", "stagei_errs",
+                          "stagei_fnames", "stagei_frames",
+                          "stagei_labels_obs", "stagei_markers_obs",
+                          "stagei_markers_sim")
+HEAD_STAGEII_KEYS = HEAD_STAGEI_KEYS + ("fullpose", "stageii_debug_details",
+                                        "trans")
+HEAD_STAGEII_DEBUG_KEYS = ("cfg", "labels_obs", "labels_orig", "markers_obs",
+                           "markers_orig", "markers_sim", "mocap_fname",
+                           "mocap_frame_rate", "mocap_time_length",
+                           "stageii_elapsed_time", "stageii_errs")
+
+
+def gmm_moments(dim, num_components, seed, scale):
+    """The mixture moments `make_gmm_prior(dim, num_components, seed,
+    scale)` draws (the same numpy draws), as the reference's prior pkl
+    holds them."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(size=(num_components, dim)) * scale * 0.5
+    covars = _covariances(rng, dim, num_components, scale)
+    return {"means": means, "covars": covars,
+            "weights": rng.dirichlet(np.ones(num_components))}
+
+
+def head_world(root, frames=None, num_verts=6890):
+    """A capture session on disk under `root`, built with the port's
+    functions alone on the CPU: a synthetic SMPL+H (`save_synthetic_npz`;
+    num_verts 6890 rounds up to the icosphere's 10242, dof_per_hand 24, 16
+    betas), the bench's 8-component GMM on the 63 body dofs as the
+    reference's pkl (`save_gmm_prior_pkl`), a 46-marker body layout
+    (`marker_layout_write`: markers on vertices whose dominant joint is a
+    body joint, as a body marker set has no finger markers and the config
+    leaves the hand dofs unoptimized), and mocap/ChipDS/Subject1/ with
+    walk.c3d and jog.c3d (`write_mocap_c3d`, mm, 120 Hz) and settings.json.
+    The truth: a subject with the bench's betas scale (0.4) and markers
+    9.5 mm off the skin, the bench's smooth random motion (`bench.py`'s
+    AR(1) poses, a drifting trans), a few markers dropping out for short
+    windows (HEAD_DROPOUTS)."""
+    import shutil
+    import torch
+    from moshpp_torch.io.mocap import write_mocap_c3d
+    from moshpp_torch.markers.layout import marker_layout_write
+    from moshpp_torch.models import make_synthetic_model
+    from moshpp_torch.models.synthetic import save_synthetic_npz
+    from moshpp_torch.ops.surface import vertex_normals
+    from moshpp_torch.pipeline.stageii import (StageIIOptions,
+                                               prepare_stageii_problem,
+                                               simulate_markers)
+    from moshpp_torch.priors.gmm import save_gmm_prior_pkl
+
+    frames = frames or HEAD_FRAMES
+    shutil.rmtree(root, ignore_errors=True)
+    support = os.path.join(root, "support", "smplh")
+    sess = os.path.join(root, "mocap", "ChipDS", "Subject1")
+    os.makedirs(support)
+    os.makedirs(sess)
+    model = make_synthetic_model("smplh", num_verts=num_verts, seed=3,
+                                 dof_per_hand=24, device="cpu")
+    model_fname = os.path.join(support, "model.npz")
+    save_synthetic_npz(model, model_fname)
+    prior_fname = os.path.join(support, "pose_body_prior.pkl")
+    save_gmm_prior_pkl(gmm_moments(63, 8, 1, 0.3), prior_fname)
+
+    rng = np.random.default_rng(0)
+    # a body marker set: no marker on the hands, whose PCA dofs the config
+    # leaves unoptimized (optimize_fingers false)
+    body = np.flatnonzero(torch.argmax(model.weights, 1).numpy()
+                          < model.info.body_pose_dof // 3)
+    vids = rng.choice(body, MARKERS, replace=False)
+    labels = [f"M{i:02d}" for i in range(MARKERS)]
+    layout_fname = os.path.join(root, "ChipDS_smplh.json")
+    marker_layout_write({
+        "marker_vids": {l: int(v) for l, v in zip(labels, vids)},
+        "marker_type_mask": {"body": np.ones(MARKERS, bool)},
+        "m2b_distance": {"body": 0.0095},
+        "surface_model_type": "smplh"}, layout_fname)
+    with open(os.path.join(sess, "settings.json"), "w") as f:
+        json.dump({"gender": "neutral"}, f)
+
+    betas = (rng.normal(size=16) * 0.4).astype(np.float32)
+    bt = torch.as_tensor(betas)
+    can_v = model.v_template + torch.einsum("vcb,b->vc",
+                                            model.shapedirs[..., :16], bt)
+    latents = (can_v[vids] + vertex_normals(can_v, model.faces)[vids]
+               * 0.0095).numpy()
+    opts = StageIIOptions()
+    truth = prepare_stageii_problem(model, betas, latents, opts, device="cpu")
+    P = model.pose_dof
+    for name, F in frames.items():
+        poses = np.zeros((F, P), np.float32)
+        poses[0] = rng.normal(size=P) * 0.15
+        for t in range(1, F):
+            poses[t] = 0.97 * poses[t - 1] + rng.normal(size=P).astype(
+                np.float32) * 0.02
+        trans = np.cumsum(rng.normal(size=(F, 3)) * 0.005, 0).astype(
+            np.float32)
+        x = torch.as_tensor(np.concatenate([trans, poses], 1))
+        obs = simulate_markers(truth, opts, x).numpy().astype(np.float64)
+        scale = F / frames["walk"]
+        for m, t0, n in HEAD_DROPOUTS:
+            t0 = int(t0 * scale)
+            obs[t0:t0 + n, m] = np.nan
+        write_mocap_c3d(obs, labels, os.path.join(sess, f"{name}.c3d"),
+                        frame_rate=HEAD_RATE)
+    return head_world_paths(root)
+
+
+def head_world_paths(root):
+    """The files of `head_world(root)`."""
+    support = os.path.join(root, "support")
+    sess = os.path.join(root, "mocap", "ChipDS", "Subject1")
+    return dict(root=root, support=support,
+                model_fname=os.path.join(support, "smplh", "model.npz"),
+                layout_fname=os.path.join(root, "ChipDS_smplh.json"),
+                fnames={n: os.path.join(sess, f"{n}.c3d")
+                        for n in HEAD_FRAMES})
+
+
+def head_overrides(world, work, **over):
+    """The head's config: the defaults but the model file, the layout and no
+    hand prior (the synthetic model carries its hand PCA)."""
+    return {"mocap.fname": world["fnames"]["walk"],
+            "dirs.work_base_dir": work,
+            "dirs.support_base_dir": world["support"],
+            "dirs.marker_layout.fname": world["layout_fname"],
+            "surface_model.type": "smplh",
+            "surface_model.fname": world["model_fname"],
+            "moshpp.pose_hand_prior_fname": None, **over}
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _pcg_polish(prob, opts, *args, **kw):
+    """The head's stage-ii solver with the polish through PCG, as phase 3
+    compares the CPU with the card (`auto` polishes by Cholesky on the
+    CPU)."""
+    from moshpp_torch.pipeline.stageii import mosh_stageii_solve
+    return mosh_stageii_solve(prob, dataclasses.replace(
+        opts, polish_solver="pcg"), *args, **kw)
+
+
+def head_floor_markers(over, seed):
+    """The fitted markers of the head's CPU stage ii (PCG polish) with the
+    observations moved by 1e-7 m of noise from `seed`; runs in a worker
+    process, which rebuilds the head's inputs from the config and the
+    stage-i pickle."""
+    import torch
+    from moshpp_torch.pipeline.head import MoSh
+    torch.set_num_threads(CPU_THREADS_PER_SOLVE)
+    mp = MoSh(device="cpu", **over)
+    mp.mosh_stagei(mosh_stagei_func=_no_solve)
+    inp = mp.stageii_inputs()
+    noise = np.random.default_rng(seed).standard_normal(inp["obs"].shape)
+    res = _pcg_polish(inp["prob"], inp["opts"], inp["obs"] + 1e-7 * noise,
+                      inp["mask"], prior=inp["prior"],
+                      model_type=inp["model_type"], device="cpu")
+    return res.markers_sim.numpy()
+
+
+def _no_solve(*a, **k):
+    raise AssertionError("a cached stage was solved")
+
+
+def _cli(args):
+    """`python -m moshpp_torch <args>` in a fresh interpreter: (exit code,
+    stdout, whether JAX or the JAX package were imported there)."""
+    probe = ("import runpy, sys\n"
+             "sys.argv = ['moshpp_torch'] + sys.argv[1:]\n"
+             "code = 0\n"
+             "try:\n"
+             "    runpy.run_module('moshpp_torch', run_name='__main__')\n"
+             "except SystemExit as e:\n"
+             "    code = e.code or 0\n"
+             "print('JAX_IMPORTED', any(m.split('.')[0] in ('jax', 'jaxlib', "
+             "'moshpp_tpu') for m in sys.modules))\n"
+             "sys.exit(code)\n")
+    r = subprocess.run([sys.executable, "-c", probe, *args], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    return r.returncode, r.stdout, r.stderr, "JAX_IMPORTED False" not in r.stdout
+
+
+def phase_head(report, device="cuda", frames=None, num_verts=6890,
+               parity_frames=HEAD_PARITY_FRAMES, cli=True):
+    """Phase 7: the head (`moshpp_torch.pipeline.head`) on a capture session
+    on disk, at the bench's width; 7a the C3D codec, 7b a cold
+    `run_moshpp_once` (stage i, then stage ii of walk.c3d at F=4096 with
+    the per-phase report), 7c the cached rerun, 7d the AMASS exporters, 7e
+    the CLI in fresh interpreters, 7f the head's stage ii on the CPU against
+    the card. Returns 7b's launches."""
+    import pickle
+    import shutil
+    import torch
+    from moshpp_torch import kernels, native
+    from moshpp_torch.io.amass import load_as_amass_npz_legacy
+    from moshpp_torch.io.c3d import read_c3d
+    from moshpp_torch.pipeline.head import MoSh, run_moshpp_once
+    from moshpp_torch.pipeline.stageii import mosh_stageii_solve
+
+    out = {}
+    t0 = time.perf_counter()
+    world = head_world(HEAD_DIR, frames, num_verts)
+    frames = frames or HEAD_FRAMES
+    F = frames["walk"]
+    log(f"phase 7: the world (model, prior, layout, {list(frames)} C3Ds) "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7a: the C3D codec ---------------------------------------------
+    t0 = time.perf_counter()
+    native_ok = native.native_available()
+    build_s = time.perf_counter() - t0
+    c3d = read_c3d(world["fnames"]["walk"])
+    t_read = time.perf_counter() - t0 - build_s
+    from moshpp_torch.io.c3d import write_c3d
+    probe = os.path.join(HEAD_DIR, "probe.c3d")
+    pts = c3d.points
+    t0 = time.perf_counter()
+    write_c3d(probe, pts, c3d.labels, frame_rate=HEAD_RATE)
+    t_write = time.perf_counter() - t0
+    back = read_c3d(probe)
+    same = (back.points.shape == pts.shape and np.array_equal(
+        back.points.view(np.uint32), pts.view(np.uint32)))
+    out["7a"] = dict(decoder=c3d.decoder, native_loaded=native_ok,
+                     native_build_s=build_s, read_s=t_read, write_s=t_write,
+                     frames=int(pts.shape[0]), markers=int(pts.shape[1]),
+                     missing=int(np.isnan(pts).any(-1).sum()),
+                     bit_for_bit=bool(same))
+    log(f"phase 7a: {pts.shape[0]}x{pts.shape[1]} C3D read by the "
+        f"{c3d.decoder} decoder in {t_read:.4f} s (library ready in "
+        f"{build_s:.2f} s), written in {t_write:.4f} s; "
+        f"{out['7a']['missing']} missing points; read-back bit for bit: "
+        f"{same}")
+    assert same, "the C3D read back differs from what was written"
+    assert c3d.decoder == "native" and back.decoder == "native", (
+        f"the native C3D codec did not load: {native.build_log()}")
+    assert pts.shape == (F, MARKERS, 3)
+
+    # ---- 7b: the cold head run ------------------------------------------
+    work = os.path.join(HEAD_DIR, "work")
+    over = head_overrides(world, work)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    kernels.COUNTS.reset()
+    t0 = time.perf_counter()
+    mp = MoSh(device=device, **over)
+    mp.mosh_stagei()
+    _sync(device)
+    t_i = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    mp.mosh_stageii()
+    _sync(device)
+    t_ii = time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    launches = dict(kernels.COUNTS.launches)
+    plain_cuda = dict(kernels.COUNTS.plain_cuda)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if torch.device(device).type == "cuda" else float("nan"))
+    with open(mp.stagei_fname, "rb") as f:
+        si = pickle.load(f)
+    with open(mp.stageii_fname, "rb") as f:
+        sii = pickle.load(f)
+    err = sii["stageii_debug_details"]["stageii_errs"]["data_mean_m"]
+    err_mm = float(np.mean(err)) * 1e3
+    stagei_mm = si["stagei_debug_details"]["stagei_errs"]["data_mean_m"] * 1e3
+    # the same solve called directly on the head's inputs, with the report
+    inp = mp.stageii_inputs()
+    res, rep = mosh_stageii_solve(inp["prob"], inp["opts"], inp["obs"],
+                                  inp["mask"], prior=inp["prior"],
+                                  model_type=inp["model_type"],
+                                  return_report=True, device=device)
+    _sync(device)
+    direct_same = np.array_equal(res.fullpose.cpu().numpy(), sii["fullpose"])
+    base = mp.stagei_fname[:-len(".pkl")]
+    files = {ext: os.path.exists(base + ext)
+             for ext in (".json", ".ply", ".c3d")}
+    out["7b"] = dict(frames=F, stagei_s=t_i, stageii_s=t_ii, total_s=total,
+                     stageii_frames_per_s=F / t_ii, peak_mem_gib=peak,
+                     host_syncs=res.host_syncs, launches=launches,
+                     plain_cuda=plain_cuda, stagei_mean_err_mm=stagei_mm,
+                     mean_marker_err_mm=err_mm,
+                     direct_solve_bit_for_bit=bool(direct_same),
+                     layout_files=files, report=rep.format_table())
+    ref_lim = max(HEAD_REF_MM, FLOOR_FACTOR * JAX_HEAD_SPREAD_MM)
+    out["7b"].update(jax_head_err_mm=JAX_HEAD_ERR_MM, limit_mm=ref_lim,
+                     example_bar_met=err_mm < HEAD_MEAN_MM)
+    log(f"phase 7b: run_moshpp_once cold: stage i {t_i:.2f} s ({stagei_mm:.4f} "
+        f"mm), stage ii {t_ii:.2f} s at F={F} ({F / t_ii:.1f} frames/s, "
+        f"report on), total {total:.2f} s; mean marker err {err_mm:.4f} mm "
+        f"(the JAX head {JAX_HEAD_ERR_MM:.4f} mm, limit {ref_lim:.4f}; the "
+        f"example's {HEAD_MEAN_MM} mm bar met: {err_mm < HEAD_MEAN_MM}); "
+        f"peak device memory {peak:.4f} GiB; host "
+        f"syncs {res.host_syncs}; direct solve bit for bit: {direct_same}; "
+        f"layout files {files}")
+    log(f"  launches: {launches}")
+    log("  stage-ii per-phase energies (mean over frames, after each phase):")
+    for line in rep.format_table().splitlines():
+        log("    " + line)
+    assert tuple(sorted(si)) == HEAD_STAGEI_KEYS, sorted(si)
+    assert tuple(sorted(si["stagei_debug_details"])) == HEAD_STAGEI_DEBUG_KEYS
+    assert tuple(sorted(sii)) == tuple(sorted(HEAD_STAGEII_KEYS)), sorted(sii)
+    assert tuple(sorted(sii["stageii_debug_details"])) == \
+        HEAD_STAGEII_DEBUG_KEYS
+    assert sii["fullpose"].shape == (F, 156) and err.shape == (F,)
+    assert np.isfinite(sii["fullpose"]).all() and np.isfinite(err).all()
+    assert all(files.values()), files
+    assert abs(err_mm - JAX_HEAD_ERR_MM) <= ref_lim, (err_mm,
+                                                      JAX_HEAD_ERR_MM, ref_lim)
+    assert direct_same, "the direct solve differs from the head's"
+    if torch.device(device).type == "cuda":
+        for name in TPU_KERNELS:
+            assert launches.get(name, 0) > 0, f"{name} never launched in 7b"
+        assert sum(plain_cuda.values()) == 0, plain_cuda
+    del res, inp
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- 7c: the cached rerun -------------------------------------------
+    kernels.COUNTS.reset()
+    t0 = time.perf_counter()
+    again = MoSh(device=device, **over)
+    again.mosh_stagei(mosh_stagei_func=_no_solve)
+    again.mosh_stageii(mosh_stageii_func=_no_solve)
+    t_cached = time.perf_counter() - t0
+    cached_launches = sum(kernels.COUNTS.launches.values())
+    out["7c"] = dict(seconds=t_cached, launches=cached_launches)
+    log(f"phase 7c: the cached rerun in {t_cached:.3f} s, "
+        f"{cached_launches} kernel launches")
+    assert cached_launches == 0 and t_cached < HEAD_CACHED_S, out["7c"]
+    assert np.array_equal(again.stageii_data["fullpose"], sii["fullpose"])
+
+    # ---- 7d: the exporters ----------------------------------------------
+    npz = os.path.join(HEAD_DIR, "export", "walk.npz")
+    amass = MoSh.load_as_amass_npz(mp.stageii_fname, stageii_npz_fname=npz,
+                                   include_markers=True)
+    legacy = load_as_amass_npz_legacy(_legacy_pickle(sii))
+    z = np.load(npz, allow_pickle=True)
+    shapes = {k: tuple(np.shape(z[k])) for k in z.files}
+    out["7d"] = dict(keys=sorted(z.files), shapes=shapes,
+                     legacy_keys=sorted(legacy))
+    log(f"phase 7d: AMASS npz keys {sorted(z.files)}; poses {shapes['poses']}, "
+        f"trans {shapes['trans']}, betas {shapes['betas']}; legacy export "
+        f"keys {sorted(legacy)}")
+    assert shapes["poses"] == (F, 156) and shapes["trans"] == (F, 3)
+    assert shapes["betas"] == (16,) and shapes["pose_body"] == (F, 63)
+    assert shapes["pose_hand"] == (F, 90) and shapes["markers"] == (F, 46, 3)
+    assert str(z["gender"]) == "neutral"
+    assert float(z["mocap_frame_rate"]) == HEAD_RATE
+    assert np.array_equal(amass["poses"], sii["fullpose"])
+    assert np.array_equal(legacy["poses"], sii["fullpose"])
+    assert legacy["betas"].shape == (16,)
+    assert os.path.exists(os.path.join(HEAD_DIR, "export",
+                                       "neutral_stagei.npz"))
+
+    # ---- 7e: the CLI in fresh interpreters ------------------------------
+    if cli:
+        t0 = time.perf_counter()
+        jog_npz = os.path.join(HEAD_DIR, "export", "jog.npz")
+        flags = ["--work-dir", work, "--support-dir", world["support"],
+                 "--model", world["model_fname"], "--model-type", "smplh",
+                 "--layout", world["layout_fname"],
+                 "-o", "moshpp.pose_hand_prior_fname=null"]
+        if device != "cuda":       # the CLI's default is the card
+            flags += ["--device", device]
+        runs = {
+            "run": _cli(["run", world["fnames"]["jog"], "--npz", jog_npz,
+                         *flags]),
+            "info": _cli(["info", world["fnames"]["jog"]]),
+            "run-many": _cli(["run-many", world["fnames"]["walk"],
+                              world["fnames"]["jog"], *flags]),
+        }
+        out["7e"] = {k: dict(rc=r[0], jax_imported=r[3],
+                             stdout_tail=r[1][-600:]) for k, r in runs.items()}
+        out["7e"]["seconds"] = time.perf_counter() - t0
+        info = json.loads(runs["info"][1].split("JAX_IMPORTED")[0])
+        log(f"phase 7e: the CLI in {out['7e']['seconds']:.1f} s: run jog.c3d "
+            f"rc {runs['run'][0]}, info rc {runs['info'][0]} "
+            f"({info['num_frames']} frames, {info['num_markers']} markers), "
+            f"run-many rc {runs['run-many'][0]} "
+            f"({runs['run-many'][1].strip().splitlines()[-2]})")
+        for k, r in runs.items():
+            assert r[0] == 0, (k, r[2][-3000:])
+            assert not r[3], f"{k}: JAX imported in the CLI process"
+        assert "loaded cached stage-i" in runs["run"][1]
+        assert np.load(jog_npz)["poses"].shape == (frames["jog"], 156)
+        assert info["num_frames"] == frames["jog"]
+        assert "0 ok, 0 failed, 2 filtered/cached of 2" in runs["run-many"][1]
+
+    # ---- 7f: CPU against card through the head ---------------------------
+    t0 = time.perf_counter()
+    sides = {}
+    for side, dev in (("cpu", "cpu"), ("card", device)):
+        w2 = os.path.join(HEAD_DIR, f"parity_{side}")
+        o2 = head_overrides(world, w2, **{"mocap.end_fidx": parity_frames})
+        m2 = MoSh(device=dev, **o2)
+        os.makedirs(os.path.dirname(m2.stagei_fname), exist_ok=True)
+        shutil.copy(mp.stagei_fname, m2.stagei_fname)
+        sides[side] = (m2, o2)
+    threads = torch.get_num_threads()
+    with ProcessPoolExecutor(len(FLOOR_SEEDS), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        pending = [pool.submit(head_floor_markers, sides["cpu"][1], s)
+                   for s in FLOOR_SEEDS]
+        torch.set_num_threads(CPU_THREADS_PER_SOLVE)
+        try:
+            tc = time.perf_counter()
+            sides["cpu"][0].mosh_stagei(mosh_stagei_func=_no_solve)
+            sides["cpu"][0].mosh_stageii(mosh_stageii_func=_pcg_polish)
+            t_cpu = time.perf_counter() - tc
+        finally:
+            torch.set_num_threads(threads)
+        tg = time.perf_counter()
+        sides["card"][0].mosh_stagei(mosh_stagei_func=_no_solve)
+        sides["card"][0].mosh_stageii(mosh_stageii_func=_pcg_polish)
+        _sync(device)
+        t_card = time.perf_counter() - tg
+        sims = [p.result(timeout=1200) for p in pending]
+    dd = {s: sides[s][0].stageii_data["stageii_debug_details"]
+          for s in sides}
+    sim_c = dd["cpu"]["markers_sim"]
+    r = dict(frames=parity_frames, cpu_s=t_cpu, card_s=t_card,
+             err_cpu_mm=float(dd["cpu"]["stageii_errs"]["data_mean_m"].mean()) * 1e3,
+             err_card_mm=float(dd["card"]["stageii_errs"]["data_mean_m"].mean()) * 1e3,
+             max_wander_mm=float(np.abs(dd["card"]["markers_sim"] - sim_c).max()) * 1e3,
+             cpu_floor_wanders_mm=[float(np.abs(s - sim_c).max()) * 1e3
+                                   for s in sims])
+    r["cpu_floor_wander_mm"] = max(r["cpu_floor_wanders_mm"])
+    r["wander_limit_mm"] = max(PARITY_WANDER_MM,
+                               FLOOR_FACTOR * r["cpu_floor_wander_mm"])
+    r["seconds"] = time.perf_counter() - t0
+    out["7f"] = r
+    log(f"phase 7f: the head's stage ii of F={parity_frames} from 7b's "
+        f"stage-i pickle: mean marker err cpu {r['err_cpu_mm']:.4f} mm, card "
+        f"{r['err_card_mm']:.4f} mm; max wander {r['max_wander_mm']:.4f} mm, "
+        f"cpu-vs-cpu floor {r['cpu_floor_wander_mm']:.4f} mm (max of "
+        f"{[round(w, 4) for w in r['cpu_floor_wanders_mm']]}), limit "
+        f"{r['wander_limit_mm']:.4f} mm (cpu {t_cpu:.1f} s, card "
+        f"{t_card:.1f} s)")
+    assert abs(r["err_cpu_mm"] - r["err_card_mm"]) <= PARITY_MEAN_MM, r
+    assert r["max_wander_mm"] <= r["wander_limit_mm"], r
+    report["head 7"] = out
+    return launches
+
+
+def _legacy_pickle(sii):
+    """A stage-ii result in the legacy (py2-era) schema that
+    `load_as_amass_npz_legacy` reads (mosh_head.py:342-441), from a
+    stage-ii pickle."""
+    cfg = sii["stageii_debug_details"]["cfg"]
+    dbg = sii["stageii_debug_details"]
+    return {"ps": {"gender": cfg["surface_model"]["gender"],
+                   "fitting_model": cfg["surface_model"]["type"],
+                   "betas": None,
+                   "num_betas": cfg["surface_model"]["num_betas"],
+                   "use_dynamics": False, "optimize_face": False},
+            "mocap_framerate": dbg["mocap_frame_rate"],
+            "mocap_timelength": dbg["mocap_time_length"],
+            "shape_est_lmrks": sii["markers_latent"],
+            "shape_est_lmlabels": sii["latent_labels"],
+            "shape_debug_details": {
+                "shape_est_lmrks_vids": sii["markers_latent_vids"]},
+            "shape_est_betas": sii["betas"],
+            "pose_est_trans": sii["trans"],
+            "pose_est_fullposes": sii["fullpose"]}
+
+
+
 def main():
     import torch
     t_main = time.perf_counter()
@@ -2458,6 +2975,11 @@ def main():
     t0 = time.perf_counter()
     phase_stagei(report)
     log(f"phase 6: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the head, from C3D files to AMASS npz: phase 7 ----------------------
+    t0 = time.perf_counter()
+    phase_head(report)
+    log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
     kern = []
     records["pcg_direction"] = records["pcg_direction@D117"]

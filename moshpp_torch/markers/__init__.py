@@ -1,1 +1,1 @@
-"""Marker tables (copies of what the JAX package's `markers/` holds)."""
+"""Marker tables and layouts (the port of the JAX package's `markers/`)."""

@@ -195,3 +195,30 @@ def make_synthetic_model(model_type: str = "smplh",
     return surface_model_from_arrays(
         arrays, model_type, DEFAULT_PARENTS[model_type], dof_per_hand,
         num_betas=num_betas, skin_k=2, device=device)
+
+
+def save_synthetic_npz(model: SurfaceModel, path: str) -> None:
+    """Write a model in the on-disk npz convention `io/model_loader.py`
+    reads (as `moshpp_tpu/models/synthetic.py::save_synthetic_npz`: the
+    derived joint tensors are stored directly, so the loader needs no
+    J_regressor)."""
+    J = model.num_joints
+    kintree_table = np.zeros((2, J), dtype=np.int64)
+    kintree_table[0] = np.array([p if p >= 0 else 2 ** 32 - 1 for p in model.parents])
+    kintree_table[1] = np.arange(J)
+    np_ = lambda t: t.detach().cpu().numpy()
+    arrs = dict(
+        v_template=np_(model.v_template),
+        shapedirs=np_(model.shapedirs),
+        posedirs=np_(model.posedirs),
+        weights=np_(model.weights),
+        joint_template=np_(model.joint_template),
+        joint_shapedirs=np_(model.joint_shapedirs),
+        f=np_(model.faces).astype(np.int32),
+        kintree_table=kintree_table,
+        model_type=model.model_type,
+    )
+    if model.hands_components.numel():
+        arrs["hands_components"] = np_(model.hands_components)
+        arrs["hands_mean"] = np_(model.hands_mean)
+    np.savez(path, **arrs)

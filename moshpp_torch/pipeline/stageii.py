@@ -33,8 +33,12 @@ blocks. The direction is the fused dogleg kernel
 (`solver/pcg.py`) in PCG phases and a batched Cholesky otherwise; on CUDA
 the polish runs deep PCG through the kernel.
 
-Not ported yet (raise NotImplementedError): `return_report`, `on_phase`
-and `mesh`.
+Telemetry: `return_report=True` adds a `StageIIReport` (each phase's mean
+per-term energies before and after it, and its mean iterations), computed
+on the device beside the solve and read once at its end; `on_phase` reads
+each phase's x and simulated markers to the host. Without them a solve
+launches and syncs as it would with neither. Not ported yet (raises
+NotImplementedError): `mesh`.
 """
 
 from __future__ import annotations
@@ -62,12 +66,18 @@ from moshpp_torch.ops.marker_transform import (MarkerFrameIndices,
                                                select_frame_indices)
 from moshpp_torch.ops.rigid_align import kabsch
 from moshpp_torch.ops.rodrigues import rodrigues_inverse, slerp_axis_angle
-from moshpp_torch.priors.gmm import MaxMixturePrior, select_component
+from moshpp_torch.priors.gmm import (MaxMixturePrior, gmm_prior_residual,
+                                     select_component)
 from moshpp_torch.solver.gauss_newton import (DoglegOptions, GNSystem,
                                               batched_system_solve,
                                               fp32_matmul)
 
 NUM_TRAIN_MARKERS = 46.0  # weight-normalization constant (chmosh.py:460)
+
+# the report's phase slots: the anchor pass's three annealed solves and its
+# full-pose solve, step 1, step 2, the smoothing sweeps as one, the polish
+STAGEII_PHASE_NAMES = ("anneal10", "anneal5", "anneal1", "anchor_step2",
+                       "step1", "step2", "sweeps", "polish")
 
 DEFAULT_STAGEII_WEIGHTS = {
     # smplh/smplx table, support_data/conf/moshpp_conf.yaml:118-125
@@ -463,6 +473,97 @@ def make_stageii_system(prob: StageIIProblem,
     return GNSystem(system_fn, cost_fn)
 
 
+def report_term_names(prob: StageIIProblem, opts: StageIIOptions, prior,
+                      model_type: str) -> Tuple[str, ...]:
+    """The report's terms in the JAX package's order: sorted by name, as
+    JAX's pytree flattening orders the energies' dict."""
+    spec = _term_spec(prob, opts, model_type)
+    names = ["data"]
+    if prior is not None and spec.body_ids is not None:
+        names.append("poseB")
+    if spec.finger_rng is not None:
+        names.append("poseH")
+    if spec.face_rng is not None:
+        names += ["poseF", "expr"]
+    if opts.optimize_dynamics and _num_extra(opts):
+        names += ["dmpl", "dmpl_anchor"]
+    return tuple(sorted(names + ["velo"]))
+
+
+def stageii_term_energies(prob: StageIIProblem, opts: StageIIOptions,
+                          prior: Optional[Prior], model_type: str):
+    """The per-term sum-of-squares breakdown (x (N, D), aux) -> {term: (N,)}
+    of each frame, keyed in `report_term_names` order
+    (`moshpp_tpu/pipeline/stageii.py::stageii_term_energies`; the
+    reference's per-objective log, chmosh.py:408-417, 662-707): the
+    data rows through the plain forward model, the body prior, the hand,
+    jaw and expression magnitudes, the DMPL magnitude and anchor, and the
+    velocity term, as the solve's system weighs them."""
+    spec = _term_spec(prob, opts, model_type)
+    wt = opts.wt
+    P = prob.sub_model.pose_dof
+    velo_w = _velo_weight_vec(prob, opts, spec, prob.device)
+    names = report_term_names(prob, opts, prior, model_type)
+    ids = (None if spec.body_ids is None else
+           torch.as_tensor(spec.body_ids, device=prob.device))
+    prior_rows = (None if prior is None or isinstance(prior, MaxMixturePrior)
+                  else torch.func.vmap(prior))
+
+    def sq(v):
+        return torch.sum(v * v, dim=-1)
+
+    def energies(x, aux):
+        pose, extra = x[:, 3:3 + P], x[:, 3 + P:]
+        sim = simulate_markers(prob, opts, x)
+        rdata = (sim - aux["markers"]) * (aux["mask"]
+                                          * aux["wt_data"][:, None])[..., None]
+        out = {"data": torch.sum(rdata * rdata, dim=(1, 2))}
+        if "poseB" in names:
+            w = wt("poseB") * aux["anneal"] * aux["wt_pose_scale"]
+            xb = x[:, ids]
+            rp = (gmm_prior_residual(prior, xb) if prior_rows is None
+                  else prior_rows(xb))
+            out["poseB"] = sq(rp * w[:, None])
+        if "poseH" in names:
+            s, e = spec.finger_rng
+            out["poseH"] = sq(x[:, s:e]
+                              * (wt("poseH") * aux["anneal"])[:, None])
+        if "poseF" in names:
+            s, e = spec.face_rng
+            out["poseF"] = sq(x[:, s:e]
+                              * (wt("poseF") * aux["anneal"])[:, None])
+            out["expr"] = sq(extra * wt("expr"))
+        if "dmpl" in names:
+            out["dmpl"] = sq(extra * wt("dmpl"))
+            out["dmpl_anchor"] = sq((extra - aux["extra_anchor"])
+                                    * (6.0 * aux["extra_on"])[:, None])
+        out["velo"] = sq((pose - aux["velo_anchor"])
+                         * (velo_w[None, :] * aux["velo_on"][:, None]))
+        return {k: out[k] for k in names}
+
+    return energies
+
+
+class StageIIReport(NamedTuple):
+    """Per-phase telemetry (reference-style per-objective logging,
+    chmosh.py:408-417, 662-707), numpy."""
+    phase_names: Tuple[str, ...]
+    term_names: Tuple[str, ...]
+    energies_before: np.ndarray   # (n_phases, n_terms) mean over frames
+    energies_after: np.ndarray    # (n_phases, n_terms)
+    iterations: np.ndarray        # (n_phases,) mean dogleg iterations/frame
+
+    def format_table(self) -> str:
+        hdr = "phase        iters  " + "  ".join(
+            f"{t:>10s}" for t in self.term_names)
+        rows = [hdr]
+        for i, name in enumerate(self.phase_names):
+            vals = "  ".join(f"{self.energies_after[i, j]:10.3e}"
+                             for j in range(len(self.term_names)))
+            rows.append(f"{name:12s} {self.iterations[i]:5.1f}  {vals}")
+        return "\n".join(rows)
+
+
 def _param_masks(model: SurfaceModel, opts: StageIIOptions, model_type: str,
                  device):
     """(step1, step2) binary masks over the packed x vector."""
@@ -552,25 +653,33 @@ def mosh_stageii_solve(prob: StageIIProblem,
                        return_report: bool = False,
                        on_phase=None,
                        mesh=None,
-                       *, device) -> StageIIResult:
+                       *, device):
     """Solve all frames on `device` (the problem's device).
 
     markers_obs (F, M, 3) in meters and mask (F, M) bool, numpy or tensors.
     More than `opts.chunk_frames` frames solve in chunks (`_solve_chunked`).
+
+    `on_phase(phase_name, x, markers_sim)` is an optional per-phase hook
+    (numpy arguments; the headless stand-in for the reference's live
+    visualization at verbosity > 1, chmosh.py:516-519), e.g.
+    `tools/visualization.phase_snapshot_writer`. It reads each phase's
+    result to the host; leave it None in production.
+
+    Returns a StageIIResult, or (StageIIResult, StageIIReport) when
+    `return_report=True`.
     """
-    if return_report or on_phase is not None or mesh is not None:
-        raise NotImplementedError(
-            "return_report, on_phase and mesh are not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("mesh (multi-GPU) is not ported yet")
     device = torch.device(device)
     if prob.device.type != device.type:
         raise ValueError(f"problem lives on {prob.device}, asked for {device}")
     model_type = model_type or prob.sub_model.model_type
     if opts.chunk_frames and markers_obs.shape[0] > opts.chunk_frames:
         return _solve_chunked(prob, opts, markers_obs, mask, prior,
-                              model_type, device)
+                              model_type, device, return_report, on_phase)
     with fp32_matmul():
         return _solve(prob, opts, markers_obs, mask, prior, model_type,
-                      device)
+                      device, return_report, on_phase)
 
 
 def _chunk_fingerprint(prob: StageIIProblem, inner_opts: StageIIOptions,
@@ -606,30 +715,52 @@ def _chunk_fingerprint(prob: StageIIProblem, inner_opts: StageIIOptions,
     return h.hexdigest()
 
 
-def _chunk_ckpt_load(path: str, fingerprint: str,
-                     device) -> Optional[StageIIResult]:
-    """A chunk's saved interior on `device`, or None when the file is
-    missing, stale or unreadable. A loaded chunk counts no host syncs."""
+_CKPT_REPORT_FIELDS = ("energies_before", "energies_after", "iterations")
+
+
+def _chunk_ckpt_load(path: str, fingerprint: str, device,
+                     return_report: bool):
+    """(a chunk's saved interior on `device`, its report or None), or None
+    when the file is missing, stale or unreadable, or was saved without the
+    report a caller wants (the chunk then re-solves to get it). A loaded
+    chunk counts no host syncs."""
     if not os.path.exists(path):
         return None
     try:
         with np.load(path, allow_pickle=False) as z:
             if str(z["fingerprint"]) != fingerprint:
                 return None
-            return StageIIResult(
+            if return_report and "report_energies_after" not in z:
+                return None
+            res = StageIIResult(
                 *[torch.as_tensor(z[f], device=device)
                   for f in StageIIResult._fields[:-1]], host_syncs=0)
+            rep = None
+            if return_report:
+                rep = StageIIReport(
+                    phase_names=tuple(str(n) for n in z["report_phase_names"]),
+                    term_names=tuple(str(n) for n in z["report_term_names"]),
+                    **{f: z["report_" + f] for f in _CKPT_REPORT_FIELDS})
+            return res, rep
     except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
         return None      # truncated or corrupt: a crash mid-write
 
 
-def _chunk_ckpt_save(path: str, fingerprint: str,
-                     piece: StageIIResult) -> None:
-    """Write a chunk's interior atomically: a crash never leaves a partial
-    file under the chunk's name."""
+def _chunk_ckpt_save(path: str, fingerprint: str, piece: StageIIResult,
+                     rep: Optional[StageIIReport]) -> None:
+    """Write a chunk's interior (and its report, where there is one)
+    atomically: a crash never leaves a partial file under the chunk's
+    name."""
     arrays = {"fingerprint": np.asarray(fingerprint)}
     arrays.update({f: getattr(piece, f).detach().cpu().numpy()
                    for f in StageIIResult._fields[:-1]})
+    if rep is not None:
+        # "report_" prefix: StageIIResult and StageIIReport both have an
+        # `iterations` field (per frame against per phase)
+        arrays["report_phase_names"] = np.asarray(rep.phase_names)
+        arrays["report_term_names"] = np.asarray(rep.term_names)
+        arrays.update({"report_" + f: np.asarray(getattr(rep, f))
+                       for f in _CKPT_REPORT_FIELDS})
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)
@@ -637,7 +768,7 @@ def _chunk_ckpt_save(path: str, fingerprint: str,
 
 
 def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
-                   device) -> StageIIResult:
+                   device, return_report=False, on_phase=None):
     """Overlapping-chunk drive of `mosh_stageii_solve` for long sequences
     (`moshpp_tpu/pipeline/stageii.py:_solve_chunked`).
 
@@ -649,7 +780,12 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
     `device`; `host_syncs` is the sum over the chunks this call solved.
     With `checkpoint_dir`, each chunk's interior is saved as
     `chunk_{s:09d}.npz` and a rerun loads every chunk whose fingerprint
-    matches (`_chunk_fingerprint`) instead of solving it."""
+    matches (`_chunk_fingerprint`) instead of solving it.
+
+    The report's energies are means over each chunk's padded window, merged
+    weighted by the frames each chunk keeps, as in the JAX package: an
+    approximation of the one-batch report (halo frames count in two
+    windows, pad frames repeat the boundary frame)."""
     F = markers_obs.shape[0]
     C, H = int(opts.chunk_frames), int(opts.chunk_halo)
     W = C + 2 * H
@@ -660,7 +796,7 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
     if ckpt_dir:
         os.makedirs(ckpt_dir, exist_ok=True)
 
-    pieces = []
+    pieces, reps, kept = [], [], []
     for s in range(0, F, C):
         lo, hi = max(0, s - H), min(F, s + C + H)
         obs_c, msk_c = obs[lo:hi], msk[lo:hi]
@@ -677,27 +813,47 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
             fp = _chunk_fingerprint(prob, inner_opts, prior, model_type,
                                     obs_c.cpu().numpy(), msk_c.cpu().numpy())
             path = os.path.join(ckpt_dir, f"chunk_{s:09d}.npz")
-            piece = _chunk_ckpt_load(path, fp, device)
-            if piece is not None:
-                pieces.append(piece)
+            cached = _chunk_ckpt_load(path, fp, device, return_report)
+            if cached is not None:
+                pieces.append(cached[0])
+                reps.append(cached[1])
+                kept.append(n_keep)
                 continue
-        res = mosh_stageii_solve(prob, inner_opts, obs_c, msk_c, prior=prior,
-                                 model_type=model_type, device=device)
+        # the telemetry arguments only where asked for: without them each
+        # chunk is solved by exactly the call it was before they existed
+        telemetry = {k: v for k, v in (("return_report", return_report),
+                                       ("on_phase", on_phase)) if v}
+        out = mosh_stageii_solve(prob, inner_opts, obs_c, msk_c, prior=prior,
+                                 model_type=model_type, device=device,
+                                 **telemetry)
+        res, rep = out if return_report else (out, None)
         take = slice(s - lo, s - lo + n_keep)
         piece = StageIIResult(*[getattr(res, f)[take]
                                 for f in StageIIResult._fields[:-1]],
                               host_syncs=res.host_syncs)
         if ckpt_dir:
-            _chunk_ckpt_save(path, fp, piece)
+            _chunk_ckpt_save(path, fp, piece, rep)
         pieces.append(piece)
+        reps.append(rep)
+        kept.append(n_keep)
 
-    return StageIIResult(
+    result = StageIIResult(
         *[torch.cat([getattr(p, f) for p in pieces])
           for f in StageIIResult._fields[:-1]],
         host_syncs=sum(p.host_syncs for p in pieces))
+    if not return_report:
+        return result
+    w = np.asarray(kept, np.float64)[:, None, None] / F
+    stack = lambda f: np.asarray([getattr(r, f) for r in reps])
+    return result, StageIIReport(
+        phase_names=reps[0].phase_names, term_names=reps[0].term_names,
+        energies_before=np.sum(stack("energies_before") * w, axis=0),
+        energies_after=np.sum(stack("energies_after") * w, axis=0),
+        iterations=np.sum(stack("iterations") * w[..., 0], axis=0))
 
 
-def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
+def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
+           return_report=False, on_phase=None):
     model = prob.sub_model
     obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=device)
     maskf = torch.as_tensor(mask, device=device).to(torch.float32)
@@ -737,14 +893,29 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
         return aux
 
     syncs = 0
+    # the report's readings stay on the device: (before, after, mean
+    # iterations) of each phase, read once after the last
+    energies = (stageii_term_energies(prob, opts, prior, model_type)
+                if return_report else None)
+    reports = []
 
-    def run(x, aux, pmask, e3, dl, use_velo=False):
+    def mean_energies(x, aux):
+        return torch.stack([v.mean() for v in energies(x, aux).values()])
+
+    def run(x, aux, pmask, e3, dl, use_velo=False, name=None):
         nonlocal syncs
         if use_velo:
             aux = dict(aux, **_velo_aux(x, P, opts.optimize_dynamics))
+        eb = mean_energies(x, aux) if return_report else None
         r = batched_system_solve(system, x, aux, dl, param_mask=pmask,
                                  e_3=e3, compact_buckets=opts.compact_buckets)
         syncs += r.host_syncs
+        if return_report:
+            reports.append((eb, mean_energies(r.x, aux),
+                            r.iterations.to(torch.float64).mean()))
+        if on_phase is not None:
+            on_phase(name, r.x.cpu().numpy(),
+                     simulate_markers(prob, opts, r.x).cpu().numpy())
         return r.x, r.iterations
 
     step1_mask, step2_mask = _param_masks(model, opts, model_type, device)
@@ -760,8 +931,9 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
         xa = rigid_init(prob, opts, obs[a], maskf[a])
         for scale in (10.0, 5.0, 1.0):  # first-frame schedule, chmosh.py:637
             xa, _ = run(xa, aux_for(a, scale), step1_mask, opts.e_3_anneal,
-                        dl_opts)
-        xa, _ = run(xa, aux_for(a), step2_mask, 1e-2, dl_opts)
+                        dl_opts, name=f"anneal{scale:g}")
+        xa, _ = run(xa, aux_for(a), step2_mask, 1e-2, dl_opts,
+                    name="anchor_step2")
         seg = np.minimum(np.searchsorted(anchor_ids, np.arange(F), "right") - 1,
                          len(anchor_ids) - 2)
         lo = anchor_ids[seg]
@@ -775,21 +947,39 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device):
         x = rigid_init(prob, opts, obs, maskf)
         for scale in (10.0, 5.0, 1.0):
             x, _ = run(x, aux_for(None, scale), step1_mask, opts.e_3_anneal,
-                       dl_opts)
+                       dl_opts, name=f"anneal{scale:g}")
+        if return_report:
+            reports.append(reports[-1])   # no anchor pass: keep the slots
 
-    x, _ = run(x, aux_full, step1_mask, 1e-2, dl_opts)      # step 1
-    x, _ = run(x, aux_full, step2_mask, 1e-2, dl_opts)      # step 2
+    x, _ = run(x, aux_full, step1_mask, 1e-2, dl_opts, name="step1")
+    x, _ = run(x, aux_full, step2_mask, 1e-2, dl_opts, name="step2")
 
     # ---- pass B: Jacobi smoothing sweeps ------------------------------------
+    n_before = len(reports)
     for _ in range(opts.smoothing_sweeps):
-        x, _ = run(x, aux_full, step2_mask, 1e-2, dl_opts, use_velo=True)
+        x, _ = run(x, aux_full, step2_mask, 1e-2, dl_opts, use_velo=True,
+                   name="sweep")
+    if return_report:
+        # one "sweeps" slot: before the first sweep, after the last
+        sweeps = reports[n_before:] or reports[-1:]
+        reports[n_before:] = [(sweeps[0][0], sweeps[-1][1], sweeps[-1][2])]
 
     iters = torch.zeros((F,), dtype=torch.int32, device=device)
     if opts.e_3_polish is not None:
         use_velo = opts.smoothing_sweeps > 0 and F > 2
         x, iters = run(x, aux_full, step2_mask, opts.e_3_polish, dl_polish,
-                       use_velo=use_velo)
-    return _finalize(prob, opts, x, iters, obs, maskf, syncs)
+                       use_velo=use_velo, name="polish")
+    elif return_report:
+        reports.append(reports[-1])
+    result = _finalize(prob, opts, x, iters, obs, maskf, syncs)
+    if not return_report:
+        return result
+    eb, ea, it = (torch.stack([r[i] for r in reports]).cpu().numpy()
+                  for i in range(3))
+    return result, StageIIReport(
+        phase_names=STAGEII_PHASE_NAMES,
+        term_names=report_term_names(prob, opts, prior, model_type),
+        energies_before=eb, energies_after=ea, iterations=it)
 
 
 def _finalize(prob, opts, x, iters, markers_obs, maskf, syncs) -> StageIIResult:

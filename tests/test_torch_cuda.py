@@ -1071,3 +1071,60 @@ def test_knn_ties_card_matches_cpu(dev):
     n_c = nearest_on_mesh(p, v, f, prefilter_k=16)
     n_g = nearest_on_mesh(p.to(dev), v.to(dev), f.to(dev), prefilter_k=16)
     torch.testing.assert_close(n_g.point.cpu(), n_c.point, rtol=0, atol=1e-6)
+
+
+def test_head_on_the_card_by_default(dev, tmp_path):
+    """The head with its default device on tests/test_head.py's world: stage
+    i and ii on the card, the main-path kernels launched, numpy in the
+    pickles; the card's stage ii within 0.1 mm (mean marker error) of the
+    CPU's on the card's stage-i pickle."""
+    import pickle
+    import shutil
+    from moshpp_torch.pipeline import head
+    from torch_head_common import base_overrides, build_world
+    w = build_world(tmp_path / "world")
+    over = base_overrides(w, tmp_path / "card")
+    kernels.COUNTS.reset()
+    mp = head.run_moshpp_once(over)
+    assert mp.device.type == "cuda"
+    for name in ("fk_smalls<jac>", "marker_rows<jac>", "marker_rows<sim>",
+                 "dogleg_direction"):
+        assert kernels.COUNTS.launches[name] > 0, name
+    with open(mp.stageii_fname, "rb") as f:
+        raw = f.read()
+    assert b"torch" not in raw
+    card = pickle.loads(raw)
+    assert isinstance(card["fullpose"], np.ndarray)
+    assert card["fullpose"].shape == (8, 156)
+    err_card = card["stageii_debug_details"]["stageii_errs"]["data_mean_m"]
+    cpu = head.MoSh(device="cpu", **dict(
+        over, **{"dirs.work_base_dir": str(tmp_path / "cpu")}))
+    os.makedirs(os.path.dirname(cpu.stagei_fname), exist_ok=True)
+    shutil.copy(mp.stagei_fname, cpu.stagei_fname)
+    cpu.mosh_stagei()
+    cpu.mosh_stageii()
+    err_cpu = cpu.stageii_data["stageii_debug_details"]["stageii_errs"][
+        "data_mean_m"]
+    assert err_card.mean() * 1e3 < 10.0
+    assert abs(err_card.mean() - err_cpu.mean()) * 1e3 < 0.1
+
+
+def test_cli_run_on_the_card(dev, tmp_path):
+    """`python -m moshpp_torch run ... --device cuda --npz ...` on
+    tests/test_head.py's world."""
+    import subprocess
+    from torch_head_common import base_overrides, build_world
+    w = build_world(tmp_path / "world")
+    flags = []
+    for k, v in base_overrides(w, tmp_path / "work").items():
+        if k != "mocap.fname":
+            flags += ["-o", f"{k}={'null' if v is None else v}"]
+    npz = tmp_path / "seq0.npz"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "moshpp_torch", "run",
+                        w["seq_fnames"][0], "--device", "cuda", "--npz",
+                        str(npz), *flags], cwd=repo, capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "mean data err" in r.stdout
+    assert np.load(npz)["poses"].shape == (8, 156)

@@ -2,12 +2,14 @@
 
 (a) the batched Gauss-Newton system (f, g, B) at probe points of the golden
     smplh problem; (b) the full `mosh_stageii_solve` outcome; (c) the port
-    never imports JAX; (d) `chip_smoke.py` refuses to run without a card.
+    imports, and its CLI runs, with JAX, the JAX package and PyYAML
+    refused; (d) `chip_smoke.py` refuses to run without a card.
 
 The solve tests build the port's problem from the JAX problem's frozen
 fields (`problem_from_arrays`), so both solve the same marker frames.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -25,6 +27,7 @@ from moshpp_tpu.pipeline.stageii import make_stageii_system as jax_system
 from moshpp_torch.models.body_model import surface_model_from_arrays
 from moshpp_torch.pipeline import stageii
 from moshpp_torch.priors.gmm import gmm_prior_from_arrays
+from torch_head_common import BLOCK_JAX_AND_YAML
 
 torch.set_num_threads(1)
 
@@ -125,34 +128,66 @@ def test_solve_matches_jax(smplh):
 
 
 def test_unported_options_raise(smplh):
-    """Chunked solves and callable priors are ported (tests/
-    test_torch_chunked.py, tests/test_torch_families.py); telemetry is
-    not."""
+    """Chunked solves, callable priors and the telemetry are ported (tests/
+    test_torch_chunked.py, tests/test_torch_families.py,
+    tests/test_torch_telemetry.py); the multi-GPU `mesh` is not."""
     fp, (prob, opts, prior) = smplh
     with pytest.raises(NotImplementedError):
         stageii.mosh_stageii_solve(prob, opts, fp["obs"], fp["mask"],
-                                   prior=prior, return_report=True,
-                                   device="cpu")
+                                   prior=prior, mesh=object(), device="cpu")
 
 
-_IMPORT_ALL = """
-import importlib, pkgutil, sys
+_IMPORT_ALL = BLOCK_JAX_AND_YAML + """
+import importlib, pkgutil
 import moshpp_torch
 for m in pkgutil.walk_packages(moshpp_torch.__path__, "moshpp_torch."):
     importlib.import_module(m.name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "moshpp_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "moshpp_tpu", "yaml"))
 assert not bad, bad
 print("ok")
 """
 
 
 def test_port_never_imports_jax():
-    """(c) every module of the port imports without JAX or the JAX package."""
+    """(c) every module of the port imports without JAX, the JAX package or
+    PyYAML."""
     r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.strip() == "ok"
+
+
+_CLI = BLOCK_JAX_AND_YAML + """
+import runpy
+sys.argv = ["moshpp_torch"] + sys.argv[1:]
+try:
+    runpy.run_module("moshpp_torch", run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "moshpp_tpu", "yaml"))
+assert not bad, bad
+"""
+
+
+def test_cli_runs_without_jax_or_yaml(tmp_path):
+    """`python -m moshpp_torch --help` and `info` with JAX, the JAX package
+    and PyYAML refused."""
+    from moshpp_torch.io.mocap import write_mocap_c3d
+    fname = str(tmp_path / "clip.c3d")
+    write_mocap_c3d(np.ones((5, 2, 3)), ["A", "B"], fname, frame_rate=50)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", _CLI, "--help"], cwd=REPO,
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    for cmd in ("run", "run-many", "export", "layout", "view", "info"):
+        assert cmd in r.stdout
+    r = subprocess.run([sys.executable, "-c", _CLI, "info", fname], cwd=REPO,
+                       capture_output=True, text=True, timeout=300, env=env)
+    assert r.returncode == 0, r.stderr[-2000:]
+    info = json.loads(r.stdout)
+    assert info["num_frames"] == 5 and info["frame_rate"] == 50.0
 
 
 def _no_ok_line(stdout: str) -> bool:
