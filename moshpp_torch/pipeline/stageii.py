@@ -819,13 +819,10 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
                 reps.append(cached[1])
                 kept.append(n_keep)
                 continue
-        # the telemetry arguments only where asked for: without them each
-        # chunk is solved by exactly the call it was before they existed
-        telemetry = {k: v for k, v in (("return_report", return_report),
-                                       ("on_phase", on_phase)) if v}
         out = mosh_stageii_solve(prob, inner_opts, obs_c, msk_c, prior=prior,
                                  model_type=model_type, device=device,
-                                 **telemetry)
+                                 return_report=return_report,
+                                 on_phase=on_phase)
         res, rep = out if return_report else (out, None)
         take = slice(s - lo, s - lo + n_keep)
         piece = StageIIResult(*[getattr(res, f)[take]

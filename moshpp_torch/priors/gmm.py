@@ -69,20 +69,37 @@ def _from_moments(means: np.ndarray, covars: np.ndarray,
     return means, chols, np.sqrt(-np.log(w))
 
 
-def make_gmm_prior(dim: int, num_components: int = 8, seed: int = 0,
-                   scale: float = 0.2, *, device) -> MaxMixturePrior:
-    """Synthetic prior on `device` for tests and benchmarks: the same numpy
-    draws as the JAX package's `make_gmm_prior`, so the same seed gives the
-    same prior."""
-    rng = np.random.default_rng(seed)
-    means = rng.normal(size=(num_components, dim)) * scale * 0.5
-    covars = []
+def synthetic_covariances(rng: np.random.Generator, dim: int,
+                          num_components: int, scale: float) -> np.ndarray:
+    """(K, dim, dim) covariances scale^2 (I + A A^T), A ~ N(0, 0.1^2), drawn
+    from `rng` as the JAX package's synthetic prior draws them."""
+    out = []
     for _ in range(num_components):
         a = rng.normal(size=(dim, dim)) * 0.1
-        covars.append(scale ** 2 * (np.eye(dim) + a @ a.T))
-    weights = rng.dirichlet(np.ones(num_components))
-    return gmm_prior_from_arrays(*_from_moments(means, np.stack(covars),
-                                                weights), device=device)
+        out.append(scale ** 2 * (np.eye(dim) + a @ a.T))
+    return np.stack(out)
+
+
+def gmm_moments(dim: int, num_components: int = 8, seed: int = 0,
+                scale: float = 0.2) -> dict:
+    """The synthetic mixture's moments ({'means', 'covars', 'weights'},
+    the reference's pose_body_prior.pkl keys): the same numpy draws as the
+    JAX package's `make_gmm_prior`."""
+    rng = np.random.default_rng(seed)
+    means = rng.normal(size=(num_components, dim)) * scale * 0.5
+    covars = synthetic_covariances(rng, dim, num_components, scale)
+    return {"means": means, "covars": covars,
+            "weights": rng.dirichlet(np.ones(num_components))}
+
+
+def make_gmm_prior(dim: int, num_components: int = 8, seed: int = 0,
+                   scale: float = 0.2, *, device) -> MaxMixturePrior:
+    """Synthetic prior on `device` for tests and benchmarks: the prior of
+    `gmm_moments(dim, num_components, seed, scale)`, so the same seed gives
+    the JAX package's prior."""
+    m = gmm_moments(dim, num_components, seed, scale)
+    return gmm_prior_from_arrays(
+        *_from_moments(m["means"], m["covars"], m["weights"]), device=device)
 
 
 def load_gmm_prior(fname: str, npose: Optional[int] = None,

@@ -146,7 +146,7 @@ def _window_recorder(calls):
     real = stageii.StageIIResult
 
     def solve(prob, opts, obs, mask, prior=None, model_type=None, *,
-              device):
+              device, **kw):
         assert opts.chunk_frames == 0
         obs = torch.as_tensor(obs)
         calls.append((obs.clone(), torch.as_tensor(mask).clone()))

@@ -1,6 +1,6 @@
 """The port's prior loaders and animal priors against the JAX package, on
 the CPU: `load_gmm_prior` in its four file formats, `sample_gmm_prior`,
-`save_gmm_prior_pkl`, the horse's Mahalanobis prior and leg-bend rows, the
+`save_gmm_prior_pkl`, `gmm_moments`, the horse's Mahalanobis prior and leg-bend rows, the
 dog's prior and pose subset, and the graphical-lasso prior and its subject
 cache (the shrinkage path). Every file is written by the test itself from
 numpy draws; all to 1e-6 relative.
@@ -86,6 +86,23 @@ def test_save_gmm_prior_pkl_is_the_reference_dict(tmp_path):
         back = pickle.load(f)
     for k, v in moments.items():
         np.testing.assert_array_equal(back[k], v)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gmm_moments_are_the_synthetic_prior(tmp_path, seed):
+    """`gmm_moments` draws the JAX package's synthetic mixture: written as
+    the reference's pkl and loaded by the JAX loader, it gives JAX's
+    `make_gmm_prior`, and so does the port's `make_gmm_prior`."""
+    path = str(tmp_path / "prior.pkl")
+    gmm.save_gmm_prior_pkl(gmm.gmm_moments(15, 5, seed, 0.3), path)
+    ref = jax_gmm.make_gmm_prior(dim=15, num_components=5, seed=seed,
+                                 scale=0.3)
+    loaded = jax_gmm.load_gmm_prior(path)
+    for f in ("means", "chols", "sqrt_neg_log_w"):
+        np.testing.assert_allclose(np.asarray(getattr(loaded, f)),
+                                   np.asarray(getattr(ref, f)), rtol=RTOL,
+                                   atol=RTOL * np.abs(getattr(ref, f)).max())
+    _same_gmm(gmm.make_gmm_prior(15, 5, seed, 0.3, device="cpu"), ref)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -2,21 +2,26 @@
 """The JAX package's head on chip_smoke.py's phase-7 session, on the CPU:
 the reference phase 7b holds the card's head to.
 
-    python tools/head_reference.py [--seeds 5] [--workers 3]
+    python tools/head_reference.py [--stagei truth|solve] [--seeds 5]
+                                   [--workers 3]
 
 Builds the session phase 7 builds (`chip_smoke.head_world`, with the port's
 own generators on the CPU: walk.c3d at F=4096 and jog.c3d at F=1024 of a
 full-width synthetic SMPL+H with a 46-marker body layout) and runs
 `moshpp_tpu.pipeline.head.MoSh` on walk.c3d with the config phase 7 uses
-(`chip_smoke.head_overrides`): stage i from the 12 frames the frame picker
-draws, then stage ii of all 4096 frames. Once with the observations as the
-files hold them, and once for each noise seed (7, 8, ...) with both
-stages' observations moved by 1e-7 m of seeded noise (through the head's
-solver hooks), each run in a spawned worker with a work directory of its
-own. Prints one JSON line and writes it to chiprun_out/head_reference.json:
-each run's stage-i data error and stage-ii mean marker error (mm) and
-seconds, and the spread (the largest difference of a noisy run's stage-ii
-error from the unperturbed one's, mm). Needs JAX; no card. Its work goes to
+(`chip_smoke.head_overrides`), then stage ii of all 4096 frames. Stage i
+is, with `--stagei truth` (phase 7b's gate), the session's truth as a
+cached stage-i pickle (`chip_smoke.head_truth_stagei`, written by the
+port's code and loaded by the JAX head); with `--stagei solve` (the cold
+run 7b prints beside its own), solved from the 12 frames the frame picker
+draws. Once with the observations as the files hold them, and once for
+each noise seed (7, 8, ...) with the solved stages' observations moved by
+1e-7 m of seeded noise (through the head's solver hooks), each run in a
+spawned worker with a work directory of its own. Prints one JSON line and
+writes it to chiprun_out/head_reference_<stagei>.json: each run's stage-i
+data error (solve only) and stage-ii mean marker error (mm) and seconds,
+and the spread (the largest difference of a noisy run's stage-ii error
+from the unperturbed one's, mm). Needs JAX; no card. Its work goes to
 .chipwork/head_reference/.
 """
 
@@ -45,9 +50,10 @@ def _noisy(fn, rng):
     return solve
 
 
-def run(seed):
-    """The JAX head on the session, the observations moved by noise from
-    `seed` (None: as they are): stage-i and stage-ii errors (mm), seconds."""
+def run(stagei, seed):
+    """The JAX head on the session from stage i `stagei` ('truth' or
+    'solve'), the observations moved by noise from `seed` (None: as they
+    are): stage-i (solve only) and stage-ii errors (mm), seconds."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     sys.path.insert(0, REPO)
@@ -57,9 +63,13 @@ def run(seed):
     from moshpp_tpu.pipeline.stageii import mosh_stageii_solve
 
     world = chip_smoke.head_world_paths(ROOT)
-    work = os.path.join(ROOT, f"work_{'base' if seed is None else seed}")
+    work = os.path.join(
+        ROOT, f"{stagei}_{'base' if seed is None else seed}")
     t0 = time.perf_counter()
     mp = head.MoSh(**chip_smoke.head_overrides(world, work))
+    if stagei == "truth":
+        chip_smoke.head_truth_stagei(world, mp.cfg.to_dict(),
+                                     mp.stagei_fname)
     hooks = {}
     if seed is not None:
         rng = np.random.default_rng(seed)
@@ -69,8 +79,9 @@ def run(seed):
     t_i = time.perf_counter() - t0
     mp.mosh_stageii(mosh_stageii_func=hooks.get("ii"))
     dbg = mp.stageii_data["stageii_debug_details"]
-    return dict(seed=seed, stagei_mm=1e3 * float(
-        mp.stagei_data["stagei_debug_details"]["stagei_errs"]["data_mean_m"]),
+    errs_i = mp.stagei_data["stagei_debug_details"]["stagei_errs"]
+    return dict(seed=seed, stagei_mm=(1e3 * float(errs_i["data_mean_m"])
+                                      if errs_i else None),
                 stageii_mm=1e3 * float(np.mean(
                     dbg["stageii_errs"]["data_mean_m"])),
                 frames=int(len(dbg["stageii_errs"]["data_mean_m"])),
@@ -79,6 +90,8 @@ def run(seed):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--stagei", choices=("truth", "solve"),
+                    default="truth")
     ap.add_argument("--seeds", type=int, default=5)
     ap.add_argument("--workers", type=int, default=3)
     args = ap.parse_args()
@@ -89,17 +102,18 @@ def main():
     seeds = [None] + list(range(7, 7 + args.seeds))
     with ProcessPoolExecutor(args.workers,
                              mp_context=get_context("spawn")) as pool:
-        runs = list(pool.map(run, seeds))
+        runs = list(pool.map(run, [args.stagei] * len(seeds), seeds))
     base = runs[0]["stageii_mm"]
-    out = dict(runs=runs, stageii_mm=base, stagei_mm=runs[0]["stagei_mm"],
+    out = dict(stagei=args.stagei, runs=runs, stageii_mm=base,
+               stagei_mm=runs[0]["stagei_mm"],
                spread_mm=max([abs(r["stageii_mm"] - base) for r in runs[1:]],
                              default=0.0),
                noise_m=NOISE_M, seconds=time.perf_counter() - t0)
     line = json.dumps(out)
     print(line)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "head_reference.json"),
-              "w") as f:
+    with open(os.path.join(REPO, "chiprun_out",
+                           f"head_reference_{args.stagei}.json"), "w") as f:
         f.write(line + "\n")
 
 
