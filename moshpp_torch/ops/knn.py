@@ -9,14 +9,9 @@ import torch
 
 
 def _sq_dists(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Squared distances (Q, P) from the coordinate differences, summed in
-    one fixed order: the same float32 operations on every device. The JAX
-    package's expansion |q|^2 - 2 q.p + |p|^2 cancels at body coordinates
-    (~1 m) to within ~1e-7 m^2, as large as the gaps between a marker's
-    nearest vertices 10 mm off the skin, so its order of near neighbours
-    follows each device's matmul rounding."""
-    d = queries[:, None, :] - points[None, :, :]
-    return d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    qq = torch.sum(queries * queries, dim=-1, keepdim=True)
+    pp = torch.sum(points * points, dim=-1)
+    return qq - 2.0 * (queries @ points.T) + pp[None, :]
 
 
 def smallest_k(d: torch.Tensor, k: int

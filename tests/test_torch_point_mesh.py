@@ -229,39 +229,6 @@ def test_nearest_vertex_matches_jax(mesh):
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
-def _near_ties(seed=0, queries=64, ring=8):
-    """Queries at body coordinates (~1 m) with a ring of points 10 mm off
-    each, their distances 2 um apart: squared distances ~4e-8 m^2 apart,
-    below what |q|^2 - 2 q.p + |p|^2 resolves in float32 at 1 m."""
-    rng = np.random.default_rng(seed)
-    q = (1.0 + 0.3 * rng.normal(size=(queries, 3))).astype(np.float32)
-    u = rng.normal(size=(queries, ring, 3))
-    u /= np.linalg.norm(u, axis=-1, keepdims=True)
-    r = 0.01 + 2e-6 * rng.permutation(ring)
-    pts = (q[:, None, :] + u * r[:, None]).astype(np.float32)
-    return q, pts.reshape(-1, 3)
-
-
-def test_knn_ranks_near_ties_by_the_geometry():
-    """Neighbours closer together than the expansion resolves come in the
-    order of their float64 distances (from the same float32 coordinates):
-    knn sums the differences, the same float32 operations on every device
-    (the card's cuBLAS expansion picked other frame vertices than the CPU's
-    for markers 10 mm off the skin). The expansion, the JAX package's form,
-    misorders some of these on the CPU."""
-    from moshpp_torch.ops.knn import knn
-    q, pts = _near_ties()
-    idx, d = knn(torch.as_tensor(q), torch.as_tensor(pts), k=8)
-    d64 = ((q[:, None, :].astype(np.float64) - pts[None]) ** 2).sum(-1)
-    ref = np.argsort(d64, axis=1, kind="stable")[:, :8]
-    np.testing.assert_array_equal(idx.numpy(), ref)
-    np.testing.assert_allclose(d.numpy(), np.take_along_axis(d64, ref, 1),
-                               rtol=1e-6)
-    qq, pp = (q * q).sum(-1, keepdims=True), (pts * pts).sum(-1)
-    expansion = qq - 2.0 * (q @ pts.T) + pp[None, :]
-    assert (np.argsort(expansion, axis=1, kind="stable")[:, :8] != ref).any()
-
-
 def test_knn_orders_ties_as_jax():
     """knn and the prefilter's smallest_k on exact ties: points of an
     integer grid and queries on and between them (every distance exact in

@@ -10,11 +10,11 @@ own generators on the CPU: walk.c3d at F=4096 and jog.c3d at F=1024 of a
 full-width synthetic SMPL+H with a 46-marker body layout) and runs
 `moshpp_tpu.pipeline.head.MoSh` on walk.c3d with the config phase 7 uses
 (`chip_smoke.head_overrides`), then stage ii of all 4096 frames. Stage i
-is, with `--stagei truth` (phase 7b's gate), the session's truth as a
-cached stage-i pickle (`chip_smoke.head_truth_stagei`, written by the
-port's code and loaded by the JAX head); with `--stagei solve` (the cold
-run 7b prints beside its own), solved from the 12 frames the frame picker
-draws. Once with the observations as the files hold them, and once for
+is, with `--stagei truth` (the reading 7b prints beside its own), the
+session's truth as a cached stage-i pickle (`chip_smoke.head_truth_stagei`,
+written by the port's code and loaded by the JAX head); with `--stagei
+solve` (7b's gate on the cold run), solved from the 12 frames the frame
+picker draws. Once with the observations as the files hold them, and once for
 each noise seed (7, 8, ...) with the solved stages' observations moved by
 1e-7 m of seeded noise (through the head's solver hooks), each run in a
 spawned worker with a work directory of its own. Prints one JSON line and
