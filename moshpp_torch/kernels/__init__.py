@@ -13,7 +13,9 @@ Each kernel wrapper adds one to `COUNTS.launches[name]` per launch (the
 `fk_smalls` and `marker_rows` wrappers also to `COUNTS.frames[(name, F)]`,
 keyed by the launch's frame count); each plain (PyTorch) version adds one to
 `COUNTS.plain_cuda[name]` when it runs on CUDA tensors, which only
-comparisons against the kernel should do.
+comparisons against the kernel should do. The counts and the first build
+are taken under a lock: a solve on a mesh launches from one host thread a
+shard.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -59,12 +62,14 @@ class Counts:
 
 
 COUNTS = Counts()
+_LOCK = threading.Lock()
 
 
 def note_plain(name: str, t: torch.Tensor) -> None:
     """Count a plain-version call that ran on a CUDA tensor."""
     if t.is_cuda:
-        COUNTS.plain_cuda[name] += 1
+        with _LOCK:
+            COUNTS.plain_cuda[name] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,9 +188,14 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
 def library():
     """(ctypes library, BuildInfo): builds on the first call."""
+    with _LOCK:
+        return _library()
+
+
+@functools.lru_cache(maxsize=None)
+def _library():
     info = build()
     lib = ctypes.CDLL(str(info.path))
     for name, argtypes in _SIGNATURES.items():
@@ -204,9 +214,16 @@ def launch(fn: str, kernel: str, *args, frames: int = None) -> None:
     err = getattr(lib, fn)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA error {err}")
-    COUNTS.launches[kernel] += 1
-    if frames is not None:
-        COUNTS.frames[(kernel, frames)] += 1
+    count_launch(kernel, frames)
+
+
+def count_launch(kernel: str, frames: int = None) -> None:
+    """Add one launch of `kernel` (at `frames` frames, if given) to
+    COUNTS."""
+    with _LOCK:
+        COUNTS.launches[kernel] += 1
+        if frames is not None:
+            COUNTS.frames[(kernel, frames)] += 1
 
 
 @functools.lru_cache(maxsize=None)

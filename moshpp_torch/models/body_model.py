@@ -259,6 +259,26 @@ def fk_globals(joints: torch.Tensor, rotmats: torch.Tensor,
     return G_rot, G_tr
 
 
+def forward_kinematics(joints: torch.Tensor, rotmats: torch.Tensor,
+                       parents: Tuple[int, ...]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rigid FK over the kinematic tree (`fk_globals`), in the JAX
+    package's contract (`moshpp_tpu/models/body_model.py:356`).
+
+    joints (..., J, 3) rest joints; rotmats (..., J, 3, 3) local rotations;
+    parents[k] the parent of joint k (-1 at a root). Returns (A, posed): A
+    (..., J, 4, 4), the skinning transforms relative to the rest pose (the
+    translation already reduced by G_k[:3, :3] @ j_k), and the posed joints
+    (..., J, 3)."""
+    G_rot, G_tr = fk_globals(joints, rotmats, parents)
+    A = torch.zeros(G_rot.shape[:-2] + (4, 4), dtype=G_rot.dtype,
+                    device=G_rot.device)
+    A[..., :3, :3] = G_rot
+    A[..., :3, 3] = G_tr - torch.einsum("...jab,...jb->...ja", G_rot, joints)
+    A[..., 3, 3] = 1.0
+    return A, G_tr
+
+
 def lbs_forward(model: SurfaceModel,
                 pose: torch.Tensor,
                 betas: torch.Tensor,

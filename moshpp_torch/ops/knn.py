@@ -1,5 +1,13 @@
 """Brute-force k-nearest-neighbour queries (port of `moshpp_tpu/ops/knn.py`):
-a dense distance matrix and a stable sort."""
+a dense distance matrix and a stable sort.
+
+The ranking is exact and the same on every device, a deliberate difference
+from the JAX package: `_sq_dists` sums the squared coordinate differences,
+where the JAX package expands |q|^2 - 2 q.p + |p|^2. At 1 m from the origin
+the expansion cancels to ~1e-7 m^2, against squared marker-to-vertex
+distances of ~1e-4 m^2, so a near-tie (a latent marker on its vertex's
+normal) goes to whatever the device's matmul rounds; the card and the CPU
+that built a session then pick other frame vertices."""
 
 from __future__ import annotations
 
@@ -9,9 +17,14 @@ import torch
 
 
 def _sq_dists(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    qq = torch.sum(queries * queries, dim=-1, keepdim=True)
-    pp = torch.sum(points * points, dim=-1)
-    return qq - 2.0 * (queries @ points.T) + pp[None, :]
+    """(Q, P) squared distances as dx*dx + dy*dy + dz*dz: three elementwise
+    products and two additions in that order, no matmul and no reduction
+    (whose association differs between the CPU and the card). Each float32
+    elementwise operation is correctly rounded on both, so the card's matrix
+    is the CPU's bit for bit."""
+    d = queries[:, None, :] - points[None, :, :]
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    return dx * dx + dy * dy + dz * dz
 
 
 def smallest_k(d: torch.Tensor, k: int
@@ -39,5 +52,6 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int,
 
 def nearest_vertex(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Index (Q,) of the nearest point for each query (the reference's
-    kd-tree snap of the latent markers to vertices)."""
-    return torch.argmin(_sq_dists(queries, points), dim=-1)
+    kd-tree snap of the latent markers to vertices); the first of equal
+    distances, as `jnp.argmin` takes it."""
+    return smallest_k(_sq_dists(queries, points), 1)[1][:, 0]

@@ -19,6 +19,11 @@ def face_cross(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(e1, e2)
 
 
+def face_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Unit face normals, (F, 3)."""
+    return _normalize(face_cross(verts, faces))
+
+
 def _incident_faces(faces: torch.Tensor, num_verts: int) -> torch.Tensor:
     """(V, K) the faces at each vertex in increasing order, K the largest
     valence, padded with the face count F."""

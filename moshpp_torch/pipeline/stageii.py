@@ -37,16 +37,28 @@ Telemetry: `return_report=True` adds a `StageIIReport` (each phase's mean
 per-term energies before and after it, and its mean iterations), computed
 on the device beside the solve and read once at its end; `on_phase` reads
 each phase's x and simulated markers to the host. Without them a solve
-launches and syncs as it would with neither. Not ported yet (raises
-NotImplementedError): `mesh`.
+launches and syncs as it would with neither.
+
+On a mesh (`mesh=`, a `parallel.FrameMesh`) each phase's dogleg solve runs
+on contiguous shards of the frames, each shard on its device from a host
+thread of its own (`_Shards`, the JAX package's `shard_map` schedule,
+`moshpp_tpu/pipeline/stageii.py:957-1031`): compaction and termination are
+shard-local, and the frame couplings (the velocity anchors, the rigid
+init, the slerps between anchors, the report and the finalize) run on the
+global frames on the problem's device. Across processes (`parallel/
+multihost.py`) a rank solves its own shards and x is all-gathered after
+every phase.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import os
+import types
 import zipfile
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -68,9 +80,12 @@ from moshpp_torch.ops.rigid_align import kabsch
 from moshpp_torch.ops.rodrigues import rodrigues_inverse, slerp_axis_angle
 from moshpp_torch.priors.gmm import (MaxMixturePrior, gmm_prior_residual,
                                      select_component)
-from moshpp_torch.solver.gauss_newton import (DoglegOptions, GNSystem,
-                                              batched_system_solve,
-                                              fp32_matmul)
+from moshpp_torch.solver.gauss_newton import (JAC_PRECISIONS, DoglegOptions,
+                                              GNSystem, batched_system_solve,
+                                              check_choice, fp32_matmul)
+
+# the JAX package's `jac_backend` values (moshpp_tpu/pipeline/stageii.py:136)
+JAC_BACKENDS = ("auto", "pallas", "xla")
 
 NUM_TRAIN_MARKERS = 46.0  # weight-normalization constant (chmosh.py:460)
 
@@ -126,6 +141,18 @@ class StageIIOptions:
     fold_weights: bool = False
     weights: Optional[Dict[str, float]] = None
     knn_k: int = 8
+    # The JAX package's Jacobian precision (one of `JAC_PRECISIONS`) and its
+    # data-block backend ('auto' | 'pallas' | 'xla'): both are taken and
+    # checked for the JAX package's callers, and both are no-ops here. The
+    # port computes J by its kernels in float32 and B as one float32 `bmm`
+    # with TF32 off, at least JAX's 'highest', and the same function
+    # whatever the backend.
+    jac_precision: str = "high"
+    jac_backend: str = "auto"
+
+    def __post_init__(self):
+        check_choice("jac_precision", self.jac_precision, JAC_PRECISIONS)
+        check_choice("jac_backend", self.jac_backend, JAC_BACKENDS)
 
     def wt(self, key: str) -> float:
         return (self.weights or DEFAULT_STAGEII_WEIGHTS).get(
@@ -552,6 +579,9 @@ class StageIIReport(NamedTuple):
     energies_before: np.ndarray   # (n_phases, n_terms) mean over frames
     energies_after: np.ndarray    # (n_phases, n_terms)
     iterations: np.ndarray        # (n_phases,) mean dogleg iterations/frame
+    # host syncs of each of this process's shards over all phases (a solve
+    # on a mesh; empty otherwise)
+    shard_syncs: Tuple[int, ...] = ()
 
     def format_table(self) -> str:
         hdr = "phase        iters  " + "  ".join(
@@ -665,21 +695,31 @@ def mosh_stageii_solve(prob: StageIIProblem,
     `tools/visualization.phase_snapshot_writer`. It reads each phase's
     result to the host; leave it None in production.
 
+    `mesh` (a `parallel.FrameMesh`) shards each phase's dogleg solve over
+    the mesh's devices (and, for a mesh of `parallel.global_frame_mesh`,
+    over the processes of its group); the rest of the schedule stays on
+    `device`. `host_syncs` is then the sum over this process's shards, and
+    the report's `shard_syncs` gives each shard's.
+
     Returns a StageIIResult, or (StageIIResult, StageIIReport) when
     `return_report=True`.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh (multi-GPU) is not ported yet")
     device = torch.device(device)
     if prob.device.type != device.type:
         raise ValueError(f"problem lives on {prob.device}, asked for {device}")
+    if mesh is not None:
+        from moshpp_torch.parallel.sharding import FrameMesh
+        if not isinstance(mesh, FrameMesh):
+            raise TypeError(f"mesh: expected a parallel.FrameMesh, got "
+                            f"{type(mesh).__name__}")
     model_type = model_type or prob.sub_model.model_type
     if opts.chunk_frames and markers_obs.shape[0] > opts.chunk_frames:
         return _solve_chunked(prob, opts, markers_obs, mask, prior,
-                              model_type, device, return_report, on_phase)
+                              model_type, device, return_report, on_phase,
+                              mesh)
     with fp32_matmul():
         return _solve(prob, opts, markers_obs, mask, prior, model_type,
-                      device, return_report, on_phase)
+                      device, return_report, on_phase, mesh)
 
 
 def _chunk_fingerprint(prob: StageIIProblem, inner_opts: StageIIOptions,
@@ -768,7 +808,7 @@ def _chunk_ckpt_save(path: str, fingerprint: str, piece: StageIIResult,
 
 
 def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
-                   device, return_report=False, on_phase=None):
+                   device, return_report=False, on_phase=None, mesh=None):
     """Overlapping-chunk drive of `mosh_stageii_solve` for long sequences
     (`moshpp_tpu/pipeline/stageii.py:_solve_chunked`).
 
@@ -785,10 +825,15 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
     The report's energies are means over each chunk's padded window, merged
     weighted by the frames each chunk keeps, as in the JAX package: an
     approximation of the one-batch report (halo frames count in two
-    windows, pad frames repeat the boundary frame)."""
+    windows, pad frames repeat the boundary frame).
+
+    On a mesh W rounds up to a multiple of the mesh's shards, so that every
+    chunk splits into equal shards, as in the JAX package."""
     F = markers_obs.shape[0]
     C, H = int(opts.chunk_frames), int(opts.chunk_halo)
     W = C + 2 * H
+    if mesh is not None:
+        W = -(-W // mesh.num_shards) * mesh.num_shards
     inner_opts = dataclasses.replace(opts, chunk_frames=0)
     obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=device)
     msk = torch.as_tensor(mask, device=device).to(torch.bool)
@@ -822,7 +867,7 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
         out = mosh_stageii_solve(prob, inner_opts, obs_c, msk_c, prior=prior,
                                  model_type=model_type, device=device,
                                  return_report=return_report,
-                                 on_phase=on_phase)
+                                 on_phase=on_phase, mesh=mesh)
         res, rep = out if return_report else (out, None)
         take = slice(s - lo, s - lo + n_keep)
         piece = StageIIResult(*[getattr(res, f)[take]
@@ -842,15 +887,18 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
         return result
     w = np.asarray(kept, np.float64)[:, None, None] / F
     stack = lambda f: np.asarray([getattr(r, f) for r in reps])
+    shard_syncs = [r.shard_syncs for r in reps if r.shard_syncs]
     return result, StageIIReport(
         phase_names=reps[0].phase_names, term_names=reps[0].term_names,
         energies_before=np.sum(stack("energies_before") * w, axis=0),
         energies_after=np.sum(stack("energies_after") * w, axis=0),
-        iterations=np.sum(stack("iterations") * w[..., 0], axis=0))
+        iterations=np.sum(stack("iterations") * w[..., 0], axis=0),
+        shard_syncs=tuple(int(v) for v in np.sum(shard_syncs, axis=0))
+        if shard_syncs else ())
 
 
 def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
-           return_report=False, on_phase=None):
+           return_report=False, on_phase=None, mesh=None):
     model = prob.sub_model
     obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=device)
     maskf = torch.as_tensor(mask, device=device).to(torch.float32)
@@ -899,21 +947,30 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
     def mean_energies(x, aux):
         return torch.stack([v.mean() for v in energies(x, aux).values()])
 
+    shards = (_Shards(mesh, prob, opts, prior, model_type, system, device)
+              if mesh is not None else None)
+
     def run(x, aux, pmask, e3, dl, use_velo=False, name=None):
         nonlocal syncs
         if use_velo:
+            # on the global frames: the 2-frame halo crosses the shards
             aux = dict(aux, **_velo_aux(x, P, opts.optimize_dynamics))
         eb = mean_energies(x, aux) if return_report else None
-        r = batched_system_solve(system, x, aux, dl, param_mask=pmask,
-                                 e_3=e3, compact_buckets=opts.compact_buckets)
-        syncs += r.host_syncs
+        if shards is not None:
+            xs, its = shards.solve(x, aux, pmask, e3, dl)
+        else:
+            r = batched_system_solve(system, x, aux, dl, param_mask=pmask,
+                                     e_3=e3,
+                                     compact_buckets=opts.compact_buckets)
+            xs, its = r.x, r.iterations
+            syncs += r.host_syncs
         if return_report:
-            reports.append((eb, mean_energies(r.x, aux),
-                            r.iterations.to(torch.float64).mean()))
+            reports.append((eb, mean_energies(xs, aux),
+                            its.to(torch.float64).mean()))
         if on_phase is not None:
-            on_phase(name, r.x.cpu().numpy(),
-                     simulate_markers(prob, opts, r.x).cpu().numpy())
-        return r.x, r.iterations
+            on_phase(name, xs.cpu().numpy(),
+                     simulate_markers(prob, opts, xs).cpu().numpy())
+        return xs, its
 
     step1_mask, step2_mask = _param_masks(model, opts, model_type, device)
     aux_full = aux_for(None)
@@ -968,6 +1025,10 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
                        use_velo=use_velo, name="polish")
     elif return_report:
         reports.append(reports[-1])
+    shard_syncs = ()
+    if shards is not None:
+        shard_syncs = tuple(shards.syncs)
+        syncs = sum(shard_syncs)
     result = _finalize(prob, opts, x, iters, obs, maskf, syncs)
     if not return_report:
         return result
@@ -976,7 +1037,108 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
     return result, StageIIReport(
         phase_names=STAGEII_PHASE_NAMES,
         term_names=report_term_names(prob, opts, prior, model_type),
-        energies_before=eb, energies_after=ea, iterations=it)
+        energies_before=eb, energies_after=ea, iterations=it,
+        shard_syncs=shard_syncs)
+
+
+def _replicate(obj, device):
+    """`obj` with every tensor it holds on `device`: tensors, dataclasses,
+    named and plain tuples, lists, dicts and Python closures (a callable
+    prior such as `mahalanobis.horse_prior`'s) are rebuilt; other objects
+    are returned as they are."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _replicate(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*[_replicate(v, device) for v in obj])
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(_replicate(v, device) for v in obj)
+    if isinstance(obj, dict):
+        return {k: _replicate(v, device) for k, v in obj.items()}
+    if isinstance(obj, types.FunctionType) and obj.__closure__:
+        cells = tuple(types.CellType(_replicate(c.cell_contents, device))
+                      for c in obj.__closure__)
+        return types.FunctionType(obj.__code__, obj.__globals__,
+                                  obj.__name__, obj.__defaults__, cells)
+    return obj
+
+
+class _Shards:
+    """A solve's phases on a mesh (the JAX package's `_shard_solve`): pad
+    the batch to a multiple of the mesh's shards with all-missing frames
+    (they converge at once and are sliced away), split x and aux into
+    contiguous shards, solve this process's shards each on its device from
+    a host thread of its own (on a stream of its own on CUDA, so that one
+    shard's per-iteration read of its active count holds up no other), and
+    gather x and the iterations back onto `device` (and, over processes,
+    from every rank: `mesh.all_gather`).
+
+    The problem, prior and system are replicated to each distinct device of
+    the mesh once a solve. `syncs` holds each local shard's host syncs."""
+
+    def __init__(self, mesh, prob, opts, prior, model_type, system, device):
+        self.mesh, self.opts, self.device = mesh, opts, device
+        self.systems = {prob.device: system}
+        for dev in dict.fromkeys(mesh.devices):
+            if dev not in self.systems:
+                self.systems[dev] = make_stageii_system(
+                    _replicate(prob, dev), opts, _replicate(prior, dev),
+                    model_type)
+        self.streams = [torch.cuda.Stream(device=dev) if dev.type == "cuda"
+                        else None for dev in mesh.devices]
+        self.syncs = [0] * len(mesh.devices)
+
+    def _one(self, i, x, aux, pmask, e3, dl):
+        dev, stream = self.mesh.devices[i], self.streams[i]
+        with contextlib.ExitStack() as ctx:
+            if stream is not None:
+                ctx.enter_context(torch.cuda.device(dev))
+                ctx.enter_context(torch.cuda.stream(stream))
+            r = batched_system_solve(
+                self.systems[dev], x.to(dev),
+                {k: v.to(dev) for k, v in aux.items()}, dl,
+                param_mask=pmask.to(dev), e_3=e3,
+                compact_buckets=self.opts.compact_buckets)
+            if stream is not None:
+                stream.synchronize()
+        return r
+
+    def solve(self, x, aux, pmask, e3, dl):
+        mesh = self.mesh
+        n_local = len(mesh.devices)
+        F = x.shape[0]
+        pad = (-F) % mesh.num_shards
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
+            aux = {k: torch.cat([v, v.new_zeros((pad,) + v.shape[1:])])
+                   for k, v in aux.items()}
+        Fs = x.shape[0] // mesh.num_shards
+        lo = mesh.process_index * n_local * Fs
+        if self.device.type == "cuda":
+            # the shards' streams read x and aux: let the problem's device
+            # finish writing them first
+            torch.cuda.synchronize(self.device)
+        with ThreadPoolExecutor(n_local,
+                                thread_name_prefix="stageii-shard") as pool:
+            futs = [pool.submit(
+                self._one, i, x[lo + i * Fs: lo + (i + 1) * Fs],
+                {k: v[lo + i * Fs: lo + (i + 1) * Fs]
+                 for k, v in aux.items()}, pmask, e3, dl)
+                for i in range(n_local)]
+            rs = [f.result() for f in futs]
+        for i, r in enumerate(rs):
+            self.syncs[i] += r.host_syncs
+        # x and the iterations (exact in float32) travel as one block
+        block = torch.cat([torch.cat([r.x.to(self.device),
+                                      r.iterations.to(self.device)[:, None]
+                                      .to(x.dtype)], dim=1) for r in rs])
+        if mesh.num_processes > 1:
+            block = mesh.all_gather(block)
+        block = block[:F]
+        return block[:, :-1].contiguous(), block[:, -1].to(torch.int32)
 
 
 def _finalize(prob, opts, x, iters, markers_obs, maskf, syncs) -> StageIIResult:

@@ -22,6 +22,24 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+# The values the JAX package's `jac_precision` takes: it hands the field to
+# `jax.default_matmul_precision` (moshpp_tpu/solver/gauss_newton.py:374,
+# moshpp_tpu/pipeline/stageii.py:697), whose values these are.
+JAC_PRECISIONS = (
+    "default", "high", "highest", "bfloat16", "tensorfloat32", "float32",
+    "ANY_F8_ANY_F8_F32", "ANY_F8_ANY_F8_F32_FAST_ACCUM", "ANY_F8_ANY_F8_ANY",
+    "ANY_F8_ANY_F8_ANY_FAST_ACCUM", "F16_F16_F16", "F16_F16_F32",
+    "BF16_BF16_BF16", "BF16_BF16_F32", "BF16_BF16_F32_X3", "BF16_BF16_F32_X6",
+    "BF16_BF16_F32_X9", "TF32_TF32_F32", "TF32_TF32_F32_X3", "F32_F32_F32",
+    "F64_F64_F64")
+
+
+def check_choice(field: str, value, choices) -> None:
+    """Raise a ValueError that names `field` unless `value` is one of
+    `choices`."""
+    if value not in choices:
+        raise ValueError(f"{field}={value!r}: expected one of {choices}")
+
 
 @dataclasses.dataclass(frozen=True)
 class DoglegOptions:
@@ -36,6 +54,14 @@ class DoglegOptions:
     g_rtol: float = 1e-7       # gradient stop: |g| <= g_rtol * (1 + f)
     linear_solver: str = "cholesky"  # 'cholesky' | 'pcg'
     cg_iters: int = 24
+    # the JAX package's matmul precision of the Jacobian and normal-equation
+    # assembly (one of JAC_PRECISIONS). A no-op here: J comes from forward
+    # AD or the kernels in float32 and B from one float32 matmul with TF32
+    # off, at least JAX's 'highest' whatever the value.
+    jac_precision: str = "highest"
+
+    def __post_init__(self):
+        check_choice("jac_precision", self.jac_precision, JAC_PRECISIONS)
 
 
 class GNSystem(NamedTuple):

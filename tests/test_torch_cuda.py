@@ -1073,6 +1073,42 @@ def test_knn_ties_card_matches_cpu(dev):
     torch.testing.assert_close(n_g.point.cpu(), n_c.point, rtol=0, atol=1e-6)
 
 
+def test_frame_indices_card_match_cpu(dev, tmp_path):
+    """select_frame_indices on the card picks the CPU's frame vertices bit
+    for bit (knn ranks by coordinate differences, which the card rounds as
+    the CPU does) on chip_smoke.py's worlds: the truth of phase 7's head
+    session (7b's truth-start pickle) and the true latent markers of phase
+    6's eight stage-i subjects; from the canonical vertices each device
+    computes itself, as `prepare_stageii_problem` does, and from the
+    CPU's."""
+    import chip_smoke
+    from moshpp_torch.models import make_synthetic_model
+    model, prior = chip_smoke.stagei_model("cpu")
+    cases = [(model, w["betas"], w["latents"]) for w in (
+        chip_smoke.stagei_world(s, 2, model, prior)
+        for s in range(chip_smoke.STAGEI_SUBJECTS))]
+    world = chip_smoke.head_world(str(tmp_path / "head"),
+                                  frames={"walk": 4, "jog": 4})
+    truth = np.load(world["truth_fname"])
+    head_model = make_synthetic_model("smplh", num_verts=6890, seed=3,
+                                      dof_per_hand=24, device="cpu")
+    cases.append((head_model, truth["betas"], truth["markers_latent"]))
+    for m, betas, latents in cases:
+        idx = {}
+        for d in ("cpu", dev):
+            md = m.to(d)
+            bt = torch.as_tensor(betas, device=d)
+            can = md.v_template + torch.einsum(
+                "vcb,b->vc", md.shapedirs[..., :bt.shape[0]], bt)
+            lat = torch.as_tensor(latents, device=d)
+            idx[str(d)] = select_frame_indices(can, lat).stacked.cpu()
+            if d == "cpu":
+                can_c, lat_c = can, lat
+        from_cpu = select_frame_indices(can_c.to(dev), lat_c.to(dev))
+        assert torch.equal(idx[str(dev)], idx["cpu"])
+        assert torch.equal(from_cpu.stacked.cpu(), idx["cpu"])
+
+
 def test_head_on_the_card_by_default(dev, tmp_path):
     """The head with its default device on tests/test_head.py's world: stage
     i and ii on the card, the main-path kernels launched, numpy in the

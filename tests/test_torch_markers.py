@@ -169,3 +169,38 @@ def test_play_and_snapshot_writers(tmp_path):
     hook("polish", m[:, 1], m)
     assert sorted(os.listdir(tmp_path / "snaps")) == ["01_step1.npz",
                                                      "02_polish.npz"]
+
+
+def test_randomize_matches_jax(tmp_path):
+    """`markers/randomize.py` against the JAX package's: the adjacency, the
+    n-ring neighbours, and the draws of one seed (plain and superset
+    layouts, face and hand markers kept in place)."""
+    from moshpp_tpu.markers import randomize as jax_randomize
+    from moshpp_torch.markers import (find_vertex_neighbours,
+                                      randomize_marker_layout_vids,
+                                      vertex_adjacency)
+    m = jax_make_model("smpl", num_verts=200, seed=12)
+    path = str(tmp_path / "m.npz")
+    jax_save_npz(m, path)
+    faces, V = np.asarray(m.faces), m.v_template.shape[0]
+    assert vertex_adjacency(faces, V) == jax_randomize.vertex_adjacency(faces,
+                                                                        V)
+    mine = find_vertex_neighbours(path)
+    theirs = jax_randomize.find_vertex_neighbours(path)
+    for vid in (0, 5, 50, V - 1):
+        for n_ring in (0, 1, 2, 3):
+            assert mine(vid, n_ring) == theirs(vid, n_ring), (vid, n_ring)
+    for marker_vids, kw in (
+            ({"A": 5, "B": 50, "C": 120}, {}),
+            ({"A": [5, 7], "B": [50]}, dict(n_ring=2)),
+            ({"A": 5, "B": 50, "C": 120},
+             dict(enable_rnd_vid_on_face_hands=False))):
+        mask = {"body": [True, False, True][:len(marker_vids)]}
+        a = randomize_marker_layout_vids(marker_vids, mask, path, seed=3, **kw)
+        b = jax_randomize.randomize_marker_layout_vids(marker_vids, mask, path,
+                                                       seed=3, **kw)
+        for _ in range(6):
+            assert a() == b()
+    with pytest.raises(ValueError, match="body"):
+        randomize_marker_layout_vids({"A": 5}, {}, path,
+                                     enable_rnd_vid_on_face_hands=False)

@@ -218,3 +218,41 @@ def test_lbs_jacobian_matches_jax(family):
     scale = np.abs(np.asarray(jm_r)).max()
     np.testing.assert_allclose(jac.numpy(), np.asarray(jm_r),
                                atol=3e-4 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("family", ["smplh", "animal_horse"])
+def test_forward_kinematics_matches_jax(family):
+    """`forward_kinematics` in the JAX package's contract: A (J, 4, 4) with
+    the translation reduced by G.j, the posed joints; one frame and a
+    batch of frames (the port's leading dims, the JAX function vmapped)."""
+    from moshpp_tpu.models import forward_kinematics as jax_fk
+    from moshpp_torch.models import forward_kinematics
+    jm = jax_make_model(family, num_verts=300, seed=9, **FAMILIES[family])
+    rng = np.random.default_rng(5)
+    J = len(jm.parents)
+    joints = (np.asarray(jm.joint_template)
+              + rng.normal(size=(J, 3)) * 0.01).astype(np.float32)
+    rv = (rng.normal(size=(3, J, 3)) * 0.5).astype(np.float32)
+    rot = np.asarray(jax.vmap(jrod.rodrigues)(jnp.asarray(rv)))
+    A_j, p_j = jax.vmap(lambda r: jax_fk(jnp.asarray(joints), r,
+                                         jm.parents))(jnp.asarray(rot))
+    A_t, p_t = forward_kinematics(torch.tensor(joints), torch.tensor(rot),
+                                  jm.parents)
+    np.testing.assert_allclose(A_t.numpy(), np.asarray(A_j), atol=1e-5)
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), atol=1e-5)
+    A1, p1 = forward_kinematics(torch.tensor(joints), torch.tensor(rot[0]),
+                                jm.parents)
+    np.testing.assert_allclose(A1.numpy(), np.asarray(A_j[0]), atol=1e-5)
+    np.testing.assert_allclose(p1.numpy(), np.asarray(p_j[0]), atol=1e-5)
+
+
+def test_face_normals_match_jax():
+    from moshpp_tpu.ops.surface import face_normals as jax_face_normals
+    from moshpp_torch.ops import face_normals
+    jm = jax_make_model("smplh", num_verts=300, seed=9, dof_per_hand=6)
+    v = (np.asarray(jm.v_template) + np.random.default_rng(1).normal(
+        size=jm.v_template.shape) * 0.003).astype(np.float32)
+    ref = np.asarray(jax_face_normals(jnp.asarray(v), jm.faces))
+    out = face_normals(torch.tensor(v), torch.as_tensor(np.asarray(jm.faces)))
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)

@@ -250,3 +250,83 @@ def test_knn_orders_ties_as_jax():
     tv, tidx = smallest_k(torch.as_tensor(d), 20)
     np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
     np.testing.assert_array_equal(tv.numpy(), -np.asarray(jv))
+
+
+# float32's unit roundoff
+_U = float(np.finfo(np.float32).eps) / 2
+
+
+def _clear_rows(d64, k, bound):
+    """Rows whose k + 1 nearest (float64 distances d64, sorted) are apart
+    by more than 2 x `bound` (per entry) between neighbouring ranks."""
+    srt = np.sort(d64, axis=1)[:, :k + 1]
+    b = np.take_along_axis(bound, np.argsort(d64, axis=1, kind="stable"),
+                           axis=1)[:, :k + 1]
+    return np.all(np.diff(srt, axis=1) > 2 * (b[:, 1:] + b[:, :-1]), axis=1)
+
+
+def test_knn_ranks_exactly():
+    """The port's knn ranks by dx*dx + dy*dy + dz*dz (a deliberate
+    difference from the JAX package's |q|^2 - 2 q.p + |p|^2): on latent
+    markers 9.5 mm off a 10242-vertex body's surface, 1 m from the origin,
+    it gives the float64 ranking wherever float64's neighbouring ranks are
+    apart by more than its own rounding, and the JAX package's wherever
+    JAX's are apart by more than the expansion's error bound."""
+    from moshpp_tpu.ops.knn import knn as jax_knn
+    from moshpp_torch.models.synthetic import icosphere
+    from moshpp_torch.ops.knn import knn
+    v, _ = icosphere(5)
+    rng = np.random.default_rng(4)
+    pts = (v * [0.2, 0.15, 0.9] + [0.6, -0.4, 0.5]).astype(np.float32)
+    vids = rng.choice(len(pts), 150, replace=False)
+    q = (pts[vids] + rng.normal(size=(150, 3)) * 0.0095).astype(np.float32)
+    k = 8
+    d64 = np.sum((q[:, None, :].astype(np.float64) - pts[None]) ** 2, -1)
+    ti, td = knn(torch.as_tensor(q), torch.as_tensor(pts), k=k)
+    # the port's error: 3 roundings of each difference, 5 of the sum
+    mine = _clear_rows(d64, k, 8 * _U * d64)
+    assert mine.mean() > 0.9
+    ref = np.argsort(d64, axis=1, kind="stable")[:, :k]
+    np.testing.assert_array_equal(ti.numpy()[mine], ref[mine])
+    np.testing.assert_allclose(td.numpy(), np.sort(d64, 1)[:, :k], rtol=1e-6)
+    # the expansion's error: a few roundings of |q|^2 + 2|q||p| + |p|^2
+    nq = np.linalg.norm(q, axis=1)[:, None]
+    npt = np.linalg.norm(pts, axis=1)[None]
+    theirs = _clear_rows(d64, k, 8 * _U * (nq + npt) ** 2)
+    ji, _ = jax_knn(jnp.asarray(q), jnp.asarray(pts), k=k)
+    assert theirs.any()
+    np.testing.assert_array_equal(ti.numpy()[theirs], np.asarray(ji)[theirs])
+
+
+def test_knn_near_tie_the_expansion_misorders():
+    """Two vertices a marker's distance off (~1 cm, 1 m from the origin)
+    whose squared distances differ by 1e-10 m^2: inside the expansion's
+    rounding, far outside the port's. Among such pairs the JAX package
+    puts the farther first for some; the port never does."""
+    from moshpp_tpu.ops.knn import knn as jax_knn
+    from moshpp_torch.ops.knn import knn, nearest_vertex
+    rng = np.random.default_rng(11)
+    misordered = 0
+    for _ in range(200):
+        q = (rng.normal(size=3) * 0.3 + [0.8, 0.4, 0.3]).astype(np.float32)
+        u = rng.normal(size=(2, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        p = (q + u * 0.01).astype(np.float32)
+        d64 = np.sum((p.astype(np.float64) - q) ** 2, -1)
+        gap = d64[1] - d64[0]
+        if not 2e-11 < abs(gap) < 1e-9:
+            # move the second point along its ray to a 1e-10 m^2 gap
+            r = np.sqrt(d64[0] + 1e-10)
+            p[1] = (q + u[1] * r).astype(np.float32)
+            d64 = np.sum((p.astype(np.float64) - q) ** 2, -1)
+            gap = d64[1] - d64[0]
+            if not 2e-11 < abs(gap) < 1e-9:
+                continue
+        near = int(np.argmin(d64))
+        ti, _ = knn(torch.as_tensor(q[None]), torch.as_tensor(p), k=2)
+        assert int(ti[0, 0]) == near
+        assert int(nearest_vertex(torch.as_tensor(q[None]),
+                                  torch.as_tensor(p))[0]) == near
+        ji, _ = jax_knn(jnp.asarray(q[None]), jnp.asarray(p), k=2)
+        misordered += int(ji[0, 0]) != near
+    assert misordered > 0

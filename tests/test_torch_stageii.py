@@ -128,13 +128,17 @@ def test_solve_matches_jax(smplh):
 
 
 def test_unported_options_raise(smplh):
-    """Chunked solves, callable priors and the telemetry are ported (tests/
-    test_torch_chunked.py, tests/test_torch_families.py,
-    tests/test_torch_telemetry.py); the multi-GPU `mesh` is not."""
+    """Chunked solves, callable priors, the telemetry and the multi-GPU
+    `mesh` are ported (tests/test_torch_chunked.py, tests/
+    test_torch_families.py, tests/test_torch_telemetry.py, tests/
+    test_torch_parallel.py); a `mesh` that is not a `parallel.FrameMesh`
+    raises, as do JAX option values the JAX package would refuse."""
     fp, (prob, opts, prior) = smplh
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="FrameMesh"):
         stageii.mosh_stageii_solve(prob, opts, fp["obs"], fp["mask"],
                                    prior=prior, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="jac_backend"):
+        stageii.StageIIOptions(jac_backend="mosaic")
 
 
 _IMPORT_ALL = BLOCK_JAX_AND_YAML + """
@@ -142,6 +146,9 @@ import importlib, pkgutil
 import moshpp_torch
 for m in pkgutil.walk_packages(moshpp_torch.__path__, "moshpp_torch."):
     importlib.import_module(m.name)
+for m in ("moshpp_torch.parallel.sharding", "moshpp_torch.parallel.multihost",
+          "moshpp_torch.markers.randomize"):
+    assert m in sys.modules, m
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "moshpp_tpu", "yaml"))
 assert not bad, bad
@@ -212,3 +219,71 @@ def test_chip_smoke_fails_without_a_card():
                            capture_output=True, text=True, timeout=300)
         assert r.returncode != 0
         assert _no_ok_line(r.stdout)
+
+
+def _jax_matmul_precisions():
+    """The values `jax.default_matmul_precision` takes, read from JAX's own
+    definition of the option."""
+    import ast
+    import inspect
+    from jax._src import config as jax_config
+    tree = ast.parse(inspect.getsource(jax_config))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Call) and any(
+                kw.arg == "name" and getattr(kw.value, "value", None)
+                == "jax_default_matmul_precision" for kw in node.keywords)):
+            (enum,) = [kw.value for kw in node.keywords
+                       if kw.arg == "enum_values"]
+            return tuple(ast.literal_eval(enum))
+    raise AssertionError("jax_default_matmul_precision not found")
+
+
+def test_jax_option_fields_are_noops():
+    """`StageIIOptions.jac_precision` / `jac_backend` and
+    `DoglegOptions.jac_precision` take every value the JAX package takes
+    and give the same solve bit for bit (the port's J is float32 from its
+    kernels and B one float32 bmm with TF32 off whatever they say); any
+    other value raises a ValueError that names the field."""
+    import dataclasses
+    from moshpp_tpu.pipeline.stageii import StageIIOptions as JaxOptions
+    from moshpp_tpu.solver.gauss_newton import DoglegOptions as JaxDogleg
+    from moshpp_torch.solver import gauss_newton as tgn
+    from torch_parallel_common import multihost_world
+
+    assert tgn.JAC_PRECISIONS == _jax_matmul_precisions()
+    assert stageii.JAC_BACKENDS == ("auto", "pallas", "xla")
+    for v in tgn.JAC_PRECISIONS:
+        with jax.default_matmul_precision(v):
+            pass
+    defaults = stageii.StageIIOptions()
+    assert (defaults.jac_precision, defaults.jac_backend) == (
+        JaxOptions().jac_precision, JaxOptions().jac_backend)
+    assert tgn.DoglegOptions().jac_precision == JaxDogleg().jac_precision
+
+    prob, opts, obs, mask = multihost_world()
+    opts = dataclasses.replace(opts, maxiter=6, smoothing_sweeps=0,
+                               jac_backend="auto")
+
+    def solve(**kw):
+        return stageii.mosh_stageii_solve(
+            prob, dataclasses.replace(opts, **kw), obs, mask,
+            model_type="smplh", device="cpu")
+
+    ref = solve()
+    for kw in ([dict(jac_precision=v) for v in tgn.JAC_PRECISIONS]
+               + [dict(jac_backend=v) for v in stageii.JAC_BACKENDS]):
+        res = solve(**kw)
+        for f in stageii.StageIIResult._fields[:-1]:
+            assert torch.equal(getattr(res, f), getattr(ref, f)), (kw, f)
+    A = torch.tensor([[2.0, 0.5], [0.1, 1.0], [0.3, -0.2]])
+    r = lambda x: torch.sin(A @ x) - 0.2
+    x0 = torch.tensor([0.3, -0.4])
+    one = tgn.dogleg_solve(r, x0, tgn.DoglegOptions())
+    for v in tgn.JAC_PRECISIONS:
+        out = tgn.dogleg_solve(r, x0, tgn.DoglegOptions(jac_precision=v))
+        assert torch.equal(out.x, one.x), v
+    for bad in (dict(jac_precision="fp8"), dict(jac_backend="triton")):
+        with pytest.raises(ValueError, match=next(iter(bad))):
+            stageii.StageIIOptions(**bad)
+    with pytest.raises(ValueError, match="jac_precision"):
+        tgn.DoglegOptions(jac_precision="HIGHEST")

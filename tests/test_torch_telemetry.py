@@ -251,7 +251,11 @@ def test_chunked_report_weighting(problems, tmp_path):
 
 
 def test_mesh_still_raises(problems):
+    """The mesh path is ported (tests/test_torch_parallel.py); a `mesh` that
+    is not a `parallel.FrameMesh` still raises, with or without a report."""
     fp, (prob, opts, prior) = problems["e0"]
-    with pytest.raises(NotImplementedError):
-        stageii.mosh_stageii_solve(prob, opts, fp["obs"], fp["mask"],
-                                   prior=prior, mesh=object(), device="cpu")
+    for report in (False, True):
+        with pytest.raises(TypeError, match="FrameMesh"):
+            stageii.mosh_stageii_solve(prob, opts, fp["obs"], fp["mask"],
+                                       prior=prior, mesh=object(),
+                                       device="cpu", return_report=report)

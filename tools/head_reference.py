@@ -3,7 +3,7 @@
 the reference phase 7b holds the card's head to.
 
     python tools/head_reference.py [--stagei truth|solve] [--seeds 5]
-                                   [--workers 3]
+                                   [--workers 3] [--no-exact-knn]
 
 Builds the session phase 7 builds (`chip_smoke.head_world`, with the port's
 own generators on the CPU: walk.c3d at F=4096 and jog.c3d at F=1024 of a
@@ -21,7 +21,11 @@ spawned worker with a work directory of its own. Prints one JSON line and
 writes it to chiprun_out/head_reference_<stagei>.json: each run's stage-i
 data error (solve only) and stage-ii mean marker error (mm) and seconds,
 and the spread (the largest difference of a noisy run's stage-ii error
-from the unperturbed one's, mm). Needs JAX; no card. Its work goes to
+from the unperturbed one's, mm). With `--exact-knn` (the default) each
+worker gives the JAX package the port's knn ranking before anything is
+traced (tools/jax_exact_knn.py): the truth's latents sit on their vertices'
+normals, where a marker's second frame vertex is a near-tie that the JAX
+package's expansion leaves to the device's rounding. Needs JAX; no card. Its work goes to
 .chipwork/head_reference/.
 """
 
@@ -50,13 +54,17 @@ def _noisy(fn, rng):
     return solve
 
 
-def run(stagei, seed):
+def run(stagei, seed, exact_knn=True):
     """The JAX head on the session from stage i `stagei` ('truth' or
     'solve'), the observations moved by noise from `seed` (None: as they
-    are): stage-i (solve only) and stage-ii errors (mm), seconds."""
+    are), with the port's knn ranking when `exact_knn`: stage-i (solve
+    only) and stage-ii errors (mm), seconds."""
     import jax
     jax.config.update("jax_platforms", "cpu")
-    sys.path.insert(0, REPO)
+    sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
+    if exact_knn:
+        from jax_exact_knn import use_exact_knn
+        use_exact_knn()
     import chip_smoke
     from moshpp_tpu.pipeline import head
     from moshpp_tpu.pipeline.stagei import mosh_stagei_solve
@@ -94,6 +102,8 @@ def main():
                     default="truth")
     ap.add_argument("--seeds", type=int, default=5)
     ap.add_argument("--workers", type=int, default=3)
+    ap.add_argument("--exact-knn", action=argparse.BooleanOptionalAction,
+                    default=True)
     args = ap.parse_args()
     sys.path.insert(0, REPO)
     import chip_smoke
@@ -102,9 +112,10 @@ def main():
     seeds = [None] + list(range(7, 7 + args.seeds))
     with ProcessPoolExecutor(args.workers,
                              mp_context=get_context("spawn")) as pool:
-        runs = list(pool.map(run, [args.stagei] * len(seeds), seeds))
+        runs = list(pool.map(run, [args.stagei] * len(seeds), seeds,
+                             [args.exact_knn] * len(seeds)))
     base = runs[0]["stageii_mm"]
-    out = dict(stagei=args.stagei, runs=runs, stageii_mm=base,
+    out = dict(stagei=args.stagei, exact_knn=args.exact_knn, runs=runs, stageii_mm=base,
                stagei_mm=runs[0]["stagei_mm"],
                spread_mm=max([abs(r["stageii_mm"] - base) for r in runs[1:]],
                              default=0.0),

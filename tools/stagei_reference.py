@@ -6,6 +6,7 @@ to.
     python tools/stagei_reference.py [--seeds 3] [--subjects S]
                                      [--frames 12] [--maxiter 100]
                                      [--port-world] [--workers 3]
+                                     [--no-exact-knn]
 
 Builds the subject of tools/bench_stagei.py (seed 0: full-width synthetic
 SMPL+H, 46 markers, 12 frames, its model and 8-component prior) and solves
@@ -27,6 +28,13 @@ give that marker other frame vertices (tests/test_torch_stagei.py::
 test_chip_smoke_world_matches_bench_stagei). With it the JAX package
 solves exactly the problem the card solves.
 
+With `--exact-knn` (the default) the JAX package ranks knn as the port does
+(tools/jax_exact_knn.py, substituted in each worker before anything is
+traced): where a marker's frame vertices are a near-tie, the expansion
+|q|^2 - 2 q.p + |p|^2 leaves the choice to the device's rounding, and the
+references would then hold the port to another problem than the one it
+solves. `--no-exact-knn` runs the JAX package as it stands.
+
 With `--subjects S` (S > 1) it is the reference of phase 6d instead: the S
 subjects of `tools/bench_stagei.py --subjects S` (seeds 0 .. S-1) solved
 one by one with `mosh_stagei_solve` and together with
@@ -37,6 +45,11 @@ S = 8). Prints and writes (chiprun_out/stagei_batched_reference.json) each
 subject's mean data error single and batched (mm), the batched solves'
 per-subject errors under noise and each subject's spread (the largest
 difference of a noisy batched solve from the unperturbed one, mm).
+`--noise-seeds 10 11` names the noise seeds instead; `--only-noisy` runs
+the noisy batches alone and prints them; `--merge LOG ...` takes every
+task that the logs of earlier runs printed as done, solves the rest, and
+writes the summary: so the batches of one reference can run in several
+invocations at once (a batch takes hours on a loaded CPU).
 """
 
 import argparse
@@ -53,11 +66,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 M = 46
 
 
-def _setup():
-    """JAX on the CPU, the bench's model and prior, and the modules."""
+def _setup(exact_knn=False):
+    """JAX on the CPU (with the port's knn ranking when `exact_knn`), the
+    bench's model and prior, and the modules."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     sys.path[:0] = [REPO, os.path.join(REPO, "tools")]
+    if exact_knn:
+        from jax_exact_knn import use_exact_knn
+        use_exact_knn()
     from moshpp_tpu.models import make_synthetic_model
     from moshpp_tpu.priors import make_gmm_prior
     model = make_synthetic_model("smplh", num_verts=6890, seed=3,
@@ -98,8 +115,8 @@ def _noisy(obs, seed):
 def _single_task(task):
     """One single solve in a spawned worker: the world of `subject`, the
     observations moved by the noise of `seed` (None: as they are)."""
-    subject, seed, frames, maxiter, port_world = task
-    jax, model, prior = _setup()
+    subject, seed, frames, maxiter, port_world, exact_knn = task
+    jax, model, prior = _setup(exact_knn)
     import jax.numpy as jnp
     from bench_stagei import _recovery_metrics
     from moshpp_tpu.pipeline.stagei import StageIOptions, mosh_stagei_solve
@@ -120,8 +137,8 @@ def _batched_task(task):
     subject s alone, ("batched", seed) all S subjects in one batch, the
     observations moved by 1e-7 m of noise from `seed` (None: as they are).
     Returns (task, each subject's mean data error in mm, seconds)."""
-    (kind, key), frames, maxiter, S, port_world = task
-    jax, model, prior = _setup()
+    (kind, key), frames, maxiter, S, port_world, exact_knn = task
+    jax, model, prior = _setup(exact_knn)
     from moshpp_tpu.pipeline.stagei import (StageIOptions, mosh_stagei_solve,
                                             mosh_stagei_solve_batched)
     worlds = _worlds(range(S), frames, port_world, model, prior, jax)
@@ -152,7 +169,8 @@ def single_reference(args):
     with ProcessPoolExecutor(args.workers,
                              mp_context=get_context("spawn")) as pool:
         futs = [pool.submit(_single_task, (0, s, args.frames, args.maxiter,
-                                           args.port_world)) for s in seeds]
+                                           args.port_world, args.exact_knn))
+                for s in seeds]
         for f in as_completed(futs):
             seed, r = f.result()
             runs[seed] = r
@@ -161,7 +179,7 @@ def single_reference(args):
     base = runs[None]
     noisy = [runs[s] for s in seeds[1:]]
     out = dict(
-        port_world=args.port_world,
+        port_world=args.port_world, exact_knn=args.exact_knn,
         err_mm=base["err_mm"],
         noisy_err_mm=[r["err_mm"] for r in noisy],
         spread_mm=max(abs(r["err_mm"] - base["err_mm"]) for r in noisy),
@@ -176,13 +194,35 @@ def single_reference(args):
                 ".json")
 
 
+def _merge_logs(fnames):
+    """The task results that earlier runs printed ("('batched', 7): [...] mm,
+    ... s" lines), keyed by task; a later file's line wins."""
+    import ast
+    import re
+    done = {}
+    line = re.compile(r"^(\('(?:batched|single)', [^)]*\)): (\[[^\]]*\]) mm")
+    for fname in fnames:
+        with open(fname) as f:
+            for text in f:
+                m = line.match(text)
+                if m:
+                    done[ast.literal_eval(m.group(1))] = ast.literal_eval(
+                        m.group(2))
+    return done
+
+
 def batched_reference(args):
     """`--subjects S`: the single and batched solves of S subjects, and the
-    batched solve under noise, each in a spawned worker."""
+    batched solve under noise, each in a spawned worker (with
+    `--only-noisy`, the noisy batches alone; with `--merge`, no solve: the
+    results earlier runs printed)."""
     S = args.subjects
-    tasks = ([("batched", k) for k in (None,) + tuple(
-        range(7, 7 + args.seeds))] + [("single", s) for s in range(S)])
-    done = {}
+    seeds = tuple(args.noise_seeds or range(7, 7 + args.seeds))
+    tasks = [("batched", k) for k in seeds]
+    if not args.only_noisy:
+        tasks = ([("batched", None)] + tasks
+                 + [("single", s) for s in range(S)])
+    done = _merge_logs(args.merge) if args.merge else {}
     # a batched solve of 8 full-width subjects holds ~7.5 GB on the CPU, a
     # single one ~1.6 GB: the batched solves get their own, smaller pool
     with ProcessPoolExecutor(args.batched_workers,
@@ -191,16 +231,20 @@ def batched_reference(args):
                                 mp_context=get_context("spawn")) as spool:
         futs = [(bpool if t[0] == "batched" else spool).submit(
             _batched_task, (t, args.frames, args.maxiter, S,
-                            args.port_world)) for t in tasks]
+                            args.port_world, args.exact_knn))
+            for t in tasks if t not in done]
         for f in as_completed(futs):
             key, errs, dt = f.result()
             done[key] = errs
             print(f"{key}: {[round(e, 4) for e in errs]} mm, {dt:.1f} s",
                   flush=True)
+    if args.only_noisy:
+        return
     base = done[("batched", None)]
-    noisy = [done[("batched", k)] for k in range(7, 7 + args.seeds)]
+    noisy = [done[("batched", k)] for k in seeds]
     _write(dict(
-        port_world=args.port_world,
+        port_world=args.port_world, exact_knn=args.exact_knn,
+        noise_seeds=list(seeds),
         single_err_mm=[done[("single", s)][0] for s in range(S)],
         batched_err_mm=base, noisy_batched_err_mm=noisy,
         batched_spread_mm=[max(abs(n[s] - base[s]) for n in noisy)
@@ -216,7 +260,12 @@ def main():
     ap.add_argument("--maxiter", type=int, default=100)
     ap.add_argument("--port-world", action="store_true")
     ap.add_argument("--workers", type=int, default=3)
+    ap.add_argument("--exact-knn", action=argparse.BooleanOptionalAction,
+                    default=True)
     ap.add_argument("--batched-workers", type=int, default=2)
+    ap.add_argument("--noise-seeds", type=int, nargs="+")
+    ap.add_argument("--only-noisy", action="store_true")
+    ap.add_argument("--merge", nargs="+", metavar="LOG")
     args = ap.parse_args()
     if args.subjects > 1:
         batched_reference(args)
