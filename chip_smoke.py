@@ -110,7 +110,25 @@ Phases, each failing loudly (exception, nonzero exit, no ok line):
      solves 1e-7 m apart), every E=0 kernel launched at the shard's frame
      count; 8b two processes on this card (`initialize_multihost` over
      gloo, `mosh_stageii_solve_multihost`, 2048 frames each), their
-     gathered frames against 8a's by the same gate, and `distribute_jobs`.
+     gathered frames against 8a's by the same gate, and `distribute_jobs`;
+     8c the sharded system probe (`stageii_system_probe(mesh=...)`) on
+     8a's mesh against the unsharded probe, rel <= 1e-5 for f, g and B, on
+     the bench problem at F=4096 and on the DMPL and face problems at
+     F=256, each also at a frame count the shards do not divide;
+  9. the inspection layer of stage ii: 9a the kernel system
+     (`make_stageii_system`) against f, g and B from `torch.func.jacfwd`
+     of the residual rows (`make_stageii_residual`, no kernel) at the
+     probe's rigid init and at a solved x, to tests/test_stageii_system.py's
+     bar, on the bench problem at F=4096 (phase 4's solution) and on the
+     DMPL and face problems at F=256; 9b the traced solve
+     (`batched_system_solve_traced`) of tools/profile_stageii.py's
+     full-system phase at F=4096, maxiter 100, bit for bit the plain loop
+     on the same inputs, with no host sync in its loop (CUDA's sync debug
+     mode), its wall and host syncs beside the plain and the compacted
+     loops' and its active share at iterations 10, 25, 50 and 100; 9c
+     tools/profile_stageii_torch.py --trace --frames 2048 and
+     examples/synthetic_end_to_end_torch.py as subprocesses on the card
+     (exit 0, 100 CSV rows, the example's marker error under 2 mm).
 
 Every kernel entry carries its bound: the least time the card could take
 for the call, the larger of its bytes (each input read once, each output
@@ -362,9 +380,10 @@ def rows_flops(tables, F, with_jac, route):
 
 def synthetic_problem(frames, device, opts, *, num_verts, dof_per_hand,
                       model_seed, prior_components, prior_seed, beta_scale,
-                      pose0_scale, num_shape_dirs=None, model_type="smplh"):
-    """A synthetic SMPL+H (or `model_type`) stage-ii problem with 46
-    markers, smooth random motion and a GMM prior on the 63 body dofs; numpy
+                      pose0_scale, num_shape_dirs=None, model_type="smplh",
+                      markers=MARKERS):
+    """A synthetic SMPL+H (or `model_type`) stage-ii problem with 46 (or
+    `markers`) markers, smooth random motion and a GMM prior on the 63 body dofs; numpy
     draws in the order of bench.py and __graft_entry__._tiny_problem. With
     extra dims the truth also carries them, drawn after the rest from the
     same rng: DMPLs (`opts.optimize_dynamics`) with amplitude a = 0.3,
@@ -387,7 +406,7 @@ def synthetic_problem(frames, device, opts, *, num_verts, dof_per_hand,
     prior = make_gmm_prior(dim=63, num_components=prior_components,
                            seed=prior_seed, scale=0.3, device=device)
     V = model.v_template.shape[0]
-    vids = rng.choice(V, MARKERS, replace=False)
+    vids = rng.choice(V, markers, replace=False)
     betas = (rng.normal(size=16) * beta_scale).astype(np.float32)
     bt = torch.as_tensor(betas, device=device)
     can_v = model.v_template + torch.einsum("vcb,b->vc",
@@ -413,7 +432,7 @@ def synthetic_problem(frames, device, opts, *, num_verts, dof_per_hand,
     x_true = torch.as_tensor(np.concatenate([trans, poses, extra], 1),
                              device=device)
     obs = simulate_markers(prob, opts, x_true)
-    mask = torch.ones((frames, MARKERS), dtype=torch.bool, device=device)
+    mask = torch.ones((frames, markers), dtype=torch.bool, device=device)
     return dict(model=model, prior=prior, betas=bt, opts=opts, prob=prob,
                 x_true=x_true, obs=obs, mask=mask, model_type=model_type)
 
@@ -1223,6 +1242,37 @@ def rigid_init_system(bp):
     return x0, aux, (g * pmask).contiguous(), B, pmask
 
 
+def traced_phase(bp, maxiter=100, linear_solver="pcg", cg_iters=24):
+    """The full-system phase that tools/profile_stageii.py --trace solves
+    traced (its lines 127-185): the problem's system at the rigid init,
+    the data weights of the observed markers, anneal and prior scale 1, no
+    anchors; dogleg options maxiter, delta_0 0.5 and the given direction.
+    Returns (system, x0, aux, options); solve it with e_3 1e-4."""
+    import torch
+    from moshpp_torch.pipeline import stageii
+    from moshpp_torch.solver.gauss_newton import DoglegOptions
+
+    prob, opts = bp["prob"], bp["opts"]
+    F = bp["obs"].shape[0]
+    P, E = prob.sub_model.pose_dof, prob.tables.n_extra
+    dev = bp["obs"].device
+    maskf = bp["mask"].to(torch.float32)
+    system = stageii.make_stageii_system(prob, opts, bp["prior"],
+                                         bp["model_type"])
+    aux = {"markers": bp["obs"], "mask": maskf,
+           "wt_data": opts.wt("data") * 46.0 / maskf.sum(1).clamp(min=1.0),
+           "anneal": torch.ones(F, device=dev),
+           "wt_pose_scale": torch.ones(F, device=dev),
+           "velo_anchor": torch.zeros((F, P), device=dev),
+           "velo_on": torch.zeros(F, device=dev),
+           "extra_anchor": torch.zeros((F, E), device=dev),
+           "extra_on": torch.zeros(F, device=dev)}
+    x0 = stageii.rigid_init(prob, opts, bp["obs"], maskf)
+    dl = DoglegOptions(maxiter=maxiter, delta_0=0.5,
+                       linear_solver=linear_solver, cg_iters=cg_iters)
+    return system, x0, aux, dl
+
+
 def check_direction(bp, records, suffix=""):
     """The direction kernel against its plain version at the problem's D:
     on B from the real assembly at the rigid init and on synthetic systems
@@ -1606,6 +1656,7 @@ def phase_slice(bp, report, phase, names):
     log(f"  launches in one solve: {launches}; plain versions on CUDA: "
         f"{plain_cuda}")
     report[f"slice {phase}"] = out
+    bp["x_solved"] = torch.cat([res.trans, res.pose, res.extra], dim=1)
     assert torch.isfinite(res.markers_sim).all() and torch.isfinite(res.pose).all()
     assert res.markers_sim.shape == bp["obs"].shape
     assert res.extra.shape == (FRAMES, E) and torch.isfinite(res.extra).all()
@@ -2925,7 +2976,11 @@ def phase_multi(report):
     max(PARITY_WANDER_MM, FLOOR_FACTOR x the floor), the floor the wander
     of two unsharded solves 1e-7 m apart, as phase 5 takes it); 8a launches
     every E=0 kernel, the frame kernels at the shard's frame count and
-    never at the sequence's; 8b's jobs cover each job once."""
+    never at the sequence's; 8b's jobs cover each job once. 8c: the
+    sharded system probe on the same mesh against the unsharded probe on
+    the bench problem at F=FRAMES and on the DMPL and face problems at
+    RESID_FRAMES, each also one frame short of a multiple of the shards,
+    within SHARD_PROBE_REL."""
     import tempfile
     import torch
     from moshpp_torch import kernels
@@ -3025,8 +3080,15 @@ def phase_multi(report):
             assert frames_at.get((name, shard), 0) > 0, (name, frames_at)
             assert frames_at.get((name, FRAMES), 0) == 0, (name, frames_at)
     sim_s = res_s.markers_sim.cpu()
-    del bp, res_u, res_u2, res_w, res_s, res_api
+    del res_u, res_u2, res_w, res_s, res_api
     torch.cuda.empty_cache()
+
+    # ---- 8c: the sharded system probe against the unsharded one ----------
+    t0 = time.perf_counter()
+    phase_sharded_probe(report, bp, mesh)
+    del bp
+    torch.cuda.empty_cache()
+    log(f"phase 8c: {time.perf_counter() - t0:.1f} s")
 
     # ---- 8b: two processes on this card ----------------------------------
     with socket.socket() as sk:
@@ -3077,6 +3139,382 @@ def phase_multi(report):
     assert abs(err_m - out["err_sharded_mm"]) <= PARITY_MEAN_MM, out8b
     assert wander <= out["wander_limit_mm"], out8b
     assert jobs == list(range(5)), jobs
+
+
+# phase 9a: the kernel system against jacfwd of the residual rows, at
+# tests/test_stageii_system.py:73-80's bar; the rows' jacfwd runs in chunks
+# of frames
+RESID_F_RTOL = 1e-5
+RESID_GB_ATOL = 5e-4
+RESID_CHUNK = 512
+RESID_FRAMES = 256          # the DMPL and face problems' frames in 9a and 8c
+# 8c: the sharded probe against the unsharded one (__graft_entry__.py:155-160)
+SHARD_PROBE_REL = 1e-5
+TRACE_MAXITER = 100
+TRACE_READ_ITERS = (10, 25, 50, 100)
+TOOL_FRAMES = 2048          # tools/profile_stageii.py's default
+TOOL_TIMEOUT_S = 300        # 9c's wall cap for each subprocess
+EXAMPLE_MAX_MM = 2.0
+
+
+def system_errors(k, r) -> dict:
+    """The largest errors of a system (f, g, B) `k` against `r`: f relative
+    to each frame's |f|, g and B relative to their largest magnitude."""
+    (f, g, B), (fr, gr, Br) = k, r
+    return dict(f=float(((f - fr).abs() / fr.abs().clamp(min=1e-30)).max()),
+                g=float((g - gr).abs().max() / gr.abs().max()),
+                B=float((B - Br).abs().max() / Br.abs().max()))
+
+
+def rows_system(bp, x, aux):
+    """(f, g, B) of every frame from the residual rows
+    (`make_stageii_residual`) and their `torch.func.jacfwd`, no kernel:
+    the generic-solver path, RESID_CHUNK frames at a time."""
+    import torch
+    from moshpp_torch.pipeline import stageii
+    from moshpp_torch.solver.gauss_newton import _residual_system
+    rs = _residual_system(stageii.make_stageii_residual(
+        bp["prob"], bp["opts"], bp["prior"], bp["model_type"]),
+        batched_aux=True)
+    parts = [rs.system_fn(x[s:s + RESID_CHUNK],
+                          {k: v[s:s + RESID_CHUNK] for k, v in aux.items()})
+             for s in range(0, x.shape[0], RESID_CHUNK)]
+    return tuple(torch.cat([p[j] for p in parts]) for j in range(3))
+
+
+def as_float64(obj):
+    """`obj` with every floating-point tensor it holds in float64:
+    tensors, dataclasses and named tuples are rebuilt, anything else is
+    returned as it is."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.double() if obj.is_floating_point() else obj
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: as_float64(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*[as_float64(v) for v in obj])
+    if isinstance(obj, dict):
+        return {k: as_float64(v) for k, v in obj.items()}
+    return obj
+
+
+def solved_x(bp):
+    """x (F, D) of the problem's `mosh_stageii_solve` on the card."""
+    import torch
+    from moshpp_torch.pipeline import stageii
+    res = stageii.mosh_stageii_solve(bp["prob"], bp["opts"], bp["obs"],
+                                     bp["mask"], prior=bp["prior"],
+                                     model_type=bp["model_type"],
+                                     device="cuda")
+    return torch.cat([res.trans, res.pose, res.extra], dim=1)
+
+
+def check_rows(bp, label, x_solved) -> dict:
+    """Phase 9a on one problem: at the probe's rigid init and at a solved
+    x (with the probe's aux), the kernel system (`make_stageii_system`)
+    against the residual rows' system, f within RESID_F_RTOL, g and B
+    within RESID_GB_ATOL of their largest magnitude; each of the problem's
+    Jacobian kernels launched, no plain version on CUDA.
+
+    Near a solution g is a sum of large data and prior terms that cancel,
+    and float32 rounding of the data rows (1e-7 m of a marker, times the
+    data weight) leaves both float32 systems ~1e-3 of max |g| from the
+    float64 rows (on a CPU at F=48 with the plain versions; on an H100 at
+    F=4096 the rows' own f sat 9.0e-6 from float64 at the rigid init,
+    against a 1e-5 bar).
+    So each bar is the larger of its value above and twice the float32
+    rows' own distance from the same rows in float64, computed here on the
+    card."""
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.ops import marker_jac as mj
+    from moshpp_torch.pipeline import stageii
+    from moshpp_torch.solver.gauss_newton import fp32_matmul
+    prob, opts = bp["prob"], bp["opts"]
+    system = stageii.make_stageii_system(prob, opts, bp["prior"],
+                                         bp["model_type"])
+    route = prob.tables.route
+    names = list(mj._names(True, route))
+    if route == "tiled":
+        names += [mj.TANGENT, mj.COLS]
+    out = {}
+    with fp32_matmul():
+        x0, aux = stageii.probe_inputs(prob, opts, bp["obs"], bp["mask"])
+        for point, x in (("rigid init", x0), ("solved", x_solved)):
+            kernels.COUNTS.reset()
+            k = system.system_fn(x, aux)
+            torch.cuda.synchronize()
+            launches = dict(kernels.COUNTS.launches)
+            plain_cuda = dict(kernels.COUNTS.plain_cuda)
+            t0 = time.perf_counter()
+            r = rows_system(bp, x, aux)
+            torch.cuda.synchronize()
+            rows_s = time.perf_counter() - t0
+            r64 = rows_system(as_float64(bp), x.double(), as_float64(aux))
+            errs = system_errors(k, r)
+            floor = system_errors(r, tuple(t.float() for t in r64))
+            kernel64 = system_errors(k, tuple(t.float() for t in r64))
+            bars = {k: max(b, 2.0 * floor[k]) for k, b in (
+                ("f", RESID_F_RTOL), ("g", RESID_GB_ATOL),
+                ("B", RESID_GB_ATOL))}
+            out[point] = dict(errs, launches=launches, rows_s=rows_s,
+                              rows_vs_float64=floor,
+                              kernel_vs_float64=kernel64, bars=bars)
+            log(f"phase 9a ({label}, F={x.shape[0]}, D={x.shape[1]}, "
+                f"{point}): kernel system against jacfwd of the residual "
+                f"rows: largest relative error f {errs['f']:.3e} (bar "
+                f"{bars['f']:.3e}), g {errs['g']:.3e} (bar "
+                f"{bars['g']:.3e}), B {errs['B']:.3e} (bar "
+                f"{bars['B']:.3e}); against the "
+                f"rows in float64: rows f {floor['f']:.3e} g "
+                f"{floor['g']:.3e} B {floor['B']:.3e}, kernels f "
+                f"{kernel64['f']:.3e} g {kernel64['g']:.3e} B "
+                f"{kernel64['B']:.3e}; rows' system {rows_s:.2f} s; "
+                f"launches {launches}")
+            for t in (*k, *r):
+                assert torch.isfinite(t).all(), (label, point)
+            for key, bar in bars.items():
+                assert errs[key] <= bar, (label, point, key, errs, floor)
+            for name in names:
+                assert launches.get(name, 0) == 1, (name, launches)
+            assert sum(plain_cuda.values()) == 0, plain_cuda
+    return out
+
+
+def phase_trace(report):
+    """Phase 9b: the traced solve (`batched_system_solve_traced`) of the
+    profile tool's full-system phase at F=FRAMES, maxiter TRACE_MAXITER,
+    every x recorded, against the plain loop (compaction off) on the same
+    inputs: x bit for bit, f non-increasing per frame, the active flags
+    summing to the iterations, x frozen bit for bit once a frame is done,
+    no host read in the loop (no sync that CUDA's sync debug mode sees, and
+    `host_syncs` 0). Readings: the three loops' walls and host syncs
+    (traced, plain, the compacted production loop) and the active share
+    at TRACE_READ_ITERS."""
+    import warnings
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.solver.gauss_newton import (
+        batched_system_solve, batched_system_solve_traced, fp32_matmul)
+
+    bp = bench_problem(FRAMES, "cuda")
+    system, x0, aux, dl = traced_phase(bp, TRACE_MAXITER)
+    e_3 = 1e-4
+
+    def loop(kind):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if kind == "traced":
+            out = batched_system_solve_traced(system, x0, aux, dl, e_3=e_3,
+                                              record_x=True)
+        else:
+            with fp32_matmul():
+                out = (batched_system_solve(
+                    system, x0, aux, dl, e_3=e_3,
+                    compact_buckets=(() if kind == "plain"
+                                     else bp["opts"].compact_buckets)), None)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    walls = {}
+    for kind in ("compacted", "plain", "traced"):
+        loop(kind)                                       # warm-up
+        if kind == "traced":
+            kernels.COUNTS.reset()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    (res_t, trace), walls[kind] = loop(kind)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            launches = dict(kernels.COUNTS.launches)
+            plain_cuda = dict(kernels.COUNTS.plain_cuda)
+            syncs_seen = [str(w.message) for w in caught
+                          if "synchroniz" in str(w.message)]
+        else:
+            (r, _), walls[kind] = loop(kind)
+            if kind == "plain":
+                res_p = r
+            else:
+                res_c = r
+    with fp32_matmul():
+        f0 = system.cost_fn(x0, aux)
+    T = TRACE_MAXITER
+    it = res_t.iterations.to(torch.long)
+    f = torch.cat([f0[None], trace["f"]])
+    after_done = (torch.arange(T, device=it.device)[:, None]
+                  >= (it - 1)[None, :])
+    frozen = ((trace["x"] == res_t.x[None]).all(-1) | ~after_done).all()
+    active_share = {i: float(trace["active"][i - 1].to(torch.float32).mean())
+                    for i in TRACE_READ_ITERS}
+    out = dict(
+        frames=FRAMES, maxiter=T,
+        x_bit_for_bit=bool(torch.equal(res_t.x, res_p.x)),
+        iterations_equal=bool(torch.equal(res_t.iterations, res_p.iterations)),
+        f_non_increasing=bool((f[1:] <= f[:-1]).all()),
+        active_sums_to_iterations=bool(torch.equal(
+            trace["active"].sum(0).to(torch.int32), res_t.iterations)),
+        x_frozen_after_done=bool(frozen),
+        host_syncs_traced=res_t.host_syncs, syncs_seen=len(syncs_seen),
+        host_syncs_plain=res_p.host_syncs,
+        host_syncs_compacted=res_c.host_syncs,
+        wall_s=walls, iterations_max=int(it.max()),
+        iterations_mean=float(it.to(torch.float64).mean()),
+        active_share=active_share,
+        err_plain_vs_compacted_max=float((res_p.x - res_c.x).abs().max()),
+        launches=launches, plain_cuda=plain_cuda)
+    log(f"phase 9b: traced solve F={FRAMES}, maxiter {T}: x bit for bit the "
+        f"plain loop's {out['x_bit_for_bit']}, iterations equal "
+        f"{out['iterations_equal']}, f non-increasing "
+        f"{out['f_non_increasing']}, active sums to iterations "
+        f"{out['active_sums_to_iterations']}, x frozen after done "
+        f"{out['x_frozen_after_done']}; host syncs traced "
+        f"{res_t.host_syncs} ({len(syncs_seen)} seen by the sync debug "
+        f"mode), plain {res_p.host_syncs}, compacted {res_c.host_syncs}")
+    log(f"phase 9b: wall traced {walls['traced']:.3f} s, plain "
+        f"{walls['plain']:.3f} s, compacted {walls['compacted']:.3f} s; "
+        f"iterations mean {out['iterations_mean']:.2f}, max "
+        f"{out['iterations_max']}; active share at iterations "
+        f"{active_share}; {card_line()}")
+    log(f"  launches in the traced solve: {launches}")
+    report["trace 9b"] = out
+    for key in ("x_bit_for_bit", "iterations_equal", "f_non_increasing",
+                "active_sums_to_iterations", "x_frozen_after_done"):
+        assert out[key], (key, out)
+    assert res_t.host_syncs == 0 and not syncs_seen, syncs_seen[:3]
+    assert torch.isfinite(trace["x"]).all() and torch.isfinite(f).all()
+    assert sum(plain_cuda.values()) == 0, plain_cuda
+    for name in TPU_KERNELS:
+        assert launches.get(name, 0) > 0, f"{name} never launched in 9b"
+
+
+def run_tools(report):
+    """Phase 9c: tools/profile_stageii_torch.py --trace at TOOL_FRAMES and
+    examples/synthetic_end_to_end_torch.py in a temporary directory, both
+    on the card, as subprocesses started together, each under
+    TOOL_TIMEOUT_S: each exits 0, the CSV has one row an iteration, and the
+    example's marker error is under EXAMPLE_MAX_MM."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "trace.csv")
+        cmds = {
+            "profile": [sys.executable,
+                        os.path.join(REPO, "tools", "profile_stageii_torch.py"),
+                        "--trace", "--frames", str(TOOL_FRAMES),
+                        "--trace-out", csv_path],
+            "example": [sys.executable,
+                        os.path.join(REPO, "examples",
+                                     "synthetic_end_to_end_torch.py"),
+                        os.path.join(tmp, "example")]}
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=tmp)
+                 for k, c in cmds.items()}
+        outs = {}
+        for k, p in procs.items():
+            try:
+                so, se = p.communicate(
+                    timeout=max(1.0, TOOL_TIMEOUT_S
+                                - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                so, se = p.communicate()
+            outs[k] = (p.returncode, so, se, time.perf_counter() - t0)
+        with open(csv_path) if os.path.exists(csv_path) else open(os.devnull) as fh:
+            rows = fh.read().splitlines()[1:]
+    m = re.search(r"mean marker error ([0-9.]+) mm", outs["example"][1])
+    example_mm = float(m.group(1)) if m else float("nan")
+    prof = [ln for ln in outs["profile"][1].splitlines()
+            if ln.startswith(("TOTAL", "per-iteration"))]
+    out = dict(exit_codes={k: v[0] for k, v in outs.items()},
+               seconds={k: v[3] for k, v in outs.items()},
+               trace_rows=len(rows), example_err_mm=example_mm,
+               profile_lines=prof)
+    for k, (rc, so, se, _) in outs.items():
+        if rc != 0:
+            log(f"phase 9c: {k} exited {rc}:\n{so[-2000:]}\n{se[-3000:]}")
+    log(f"phase 9c: profile_stageii_torch.py --trace --frames {TOOL_FRAMES} "
+        f"exit {outs['profile'][0]} in {outs['profile'][3]:.1f} s, "
+        f"{len(rows)} trace rows; {' | '.join(prof)}")
+    log(f"phase 9c: synthetic_end_to_end_torch.py exit {outs['example'][0]} "
+        f"in {outs['example'][3]:.1f} s, mean marker error {example_mm:.4f} "
+        f"mm (bar {EXAMPLE_MAX_MM} mm)")
+    report["tools 9c"] = out
+    assert out["exit_codes"] == {"profile": 0, "example": 0}, out
+    assert len(rows) == TRACE_MAXITER, len(rows)
+    assert example_mm < EXAMPLE_MAX_MM, example_mm
+
+
+def phase_inspect(report, x4):
+    """Phase 9: 9a the residual rows against the kernel system on the
+    bench problem at F=FRAMES (at phase 4's solved x `x4`) and on the DMPL
+    and face problems at RESID_FRAMES; 9b the traced solve; 9c the tools."""
+    import torch
+    t0 = time.perf_counter()
+    out = {}
+    bp = bench_problem(FRAMES, "cuda")
+    out["bench"] = check_rows(bp, "bench", x4.cuda())
+    del bp
+    for label, make in (("DMPL", dmpl_problem), ("face", face_problem)):
+        p = make(RESID_FRAMES, "cuda")
+        out[label] = check_rows(p, label, solved_x(p))
+        del p
+    report["rows 9a"] = out
+    torch.cuda.empty_cache()
+    log(f"phase 9a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_trace(report)
+    torch.cuda.empty_cache()
+    log(f"phase 9b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_tools(report)
+    log(f"phase 9c: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_probe(report, bp, mesh):
+    """Phase 8c: `stageii_system_probe` on `mesh` against the unsharded
+    probe, max|sharded - unsharded| / max|unsharded| <= SHARD_PROBE_REL for
+    each of f, g and B, on the bench problem `bp` and on the DMPL and face
+    problems at RESID_FRAMES, each at its frames and at one frame short of
+    a multiple of the shards; the Jacobian fk_smalls launched once a shard
+    at the shard's frame count."""
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.ops import marker_jac as mj
+    from moshpp_torch.pipeline import stageii
+    n = mesh.num_shards
+    report["multi 8c"] = out8c = {}
+    for label, p in (("bench", bp), ("DMPL", dmpl_problem(RESID_FRAMES,
+                                                          "cuda")),
+                     ("face", face_problem(RESID_FRAMES, "cuda"))):
+        F = p["obs"].shape[0]
+        for frames in (F, F - n + 1):
+            args = (p["prob"], p["opts"], p["obs"][:frames],
+                    p["mask"][:frames])
+            kw = dict(prior=p["prior"], model_type=p["model_type"])
+            u = stageii.stageii_system_probe(*args, **kw)
+            kernels.COUNTS.reset()
+            sh = stageii.stageii_system_probe(*args, **kw, mesh=mesh)
+            torch.cuda.synchronize()
+            frames_at = dict(kernels.COUNTS.frames)
+            rel = {name: float((a - b).abs().max() / b.abs().max())
+                   for name, a, b in zip("fgB", sh, u)}
+            shard_f = -(-frames // n)
+            fk = mj._names(True, p["prob"].tables.route)[0]
+            out8c[f"{label}@{frames}"] = dict(rel, shard_frames=shard_f)
+            log(f"phase 8c ({label}, F={frames}, {n} shards of {shard_f}): "
+                f"sharded probe against unsharded, max|diff|/max|unsharded| "
+                f"f {rel['f']:.3e}, g {rel['g']:.3e}, B {rel['B']:.3e} (bar "
+                f"{SHARD_PROBE_REL:g}); {fk} launches at {shard_f} frames: "
+                f"{frames_at.get((fk, shard_f), 0)}")
+            assert all(a.shape == b.shape for a, b in zip(sh, u))
+            assert sh[2].shape == (frames,) + sh[1].shape[1:] * 2
+            assert max(rel.values()) <= SHARD_PROBE_REL, (label, frames, rel)
+            assert frames_at.get((fk, shard_f), 0) == n, (fk, frames_at)
 
 
 def _legacy_pickle(sii):
@@ -3153,6 +3591,7 @@ def main():
         ("reference parity problem", parity_problem, 64, False),
         ("bench problem", bench_problem, PARITY_FRAMES, True)))
     launches = phase_slice(bp, report, "4", TPU_KERNELS)
+    x4 = bp["x_solved"].cpu()          # phase 9a's solved point
     del bp
     torch.cuda.empty_cache()
 
@@ -3257,6 +3696,11 @@ def main():
     t0 = time.perf_counter()
     phase_multi(report)
     log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+
+    # ---- the inspection layer: phase 9 --------------------------------------
+    t0 = time.perf_counter()
+    phase_inspect(report, x4)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
 
     kern = []
     records["pcg_direction"] = records["pcg_direction@D117"]

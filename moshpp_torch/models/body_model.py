@@ -246,7 +246,10 @@ def fk_globals(joints: torch.Tensor, rotmats: torch.Tensor,
     joints: (J, 3) or (..., J, 3) rest joints; rotmats: (..., J, 3, 3)."""
     t_rel = rel_trans(joints, parents).expand(rotmats.shape[:-1])
     G_rot = rotmats.clone()
-    G_tr = t_rel.clone()
+    # like rotmats, not a clone of t_rel: under `torch.func.vmap` over the
+    # poses with shared rest joints the levels below write batched values
+    G_tr = torch.empty_like(rotmats[..., 0])
+    G_tr.copy_(t_rel)
     dev = rotmats.device
     for ids, pids in _tree_levels(parents):
         ids_t = torch.as_tensor(ids, device=dev)

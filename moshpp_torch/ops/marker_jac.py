@@ -45,6 +45,7 @@ kernel or raises. The tables are dense and marker-major: the lane-banded,
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -747,6 +748,16 @@ def marker_sim_and_jacobian(model: SurfaceModel, tables: MarkerJacTables,
     theta, trans, extra = kernel_inputs(model, tables, x)
     return marker_rows(fk_smalls(theta, tables, True, extra), trans, tables,
                        True, extra)
+
+
+def build_marker_jacobian_fn(model: SurfaceModel, idx: MarkerFrameIndices,
+                             coeffs: torch.Tensor, betas: torch.Tensor):
+    """Freeze a problem's tables and return fn(x (F, 3+P)) -> (sim (F, M,
+    3), jm (F, M, 3, 3+P)), `marker_sim_and_jacobian` on them: on a CUDA x
+    the `fk_smalls<jac>` and `marker_rows<jac>` kernels, on a CPU x their
+    plain versions."""
+    tables = prepare_marker_jac_tables(model, idx, coeffs, betas)
+    return functools.partial(marker_sim_and_jacobian, model, tables)
 
 
 def marker_resid_and_wjac(model: SurfaceModel, tables: MarkerJacTables,

@@ -80,3 +80,16 @@ def reconstruct_markers(posed_verts: torch.Tensor,
     v0, f1, f2, f3 = _frames(posed_verts, idx)
     return (v0 + coeffs[:, 0:1] * f1 + coeffs[:, 1:2] * f2
             + coeffs[:, 2:3] * f3)
+
+
+def transport_markers(can_verts: torch.Tensor,
+                      markers_latent: torch.Tensor,
+                      posed_verts: torch.Tensor,
+                      idx: MarkerFrameIndices) -> torch.Tensor:
+    """Latent markers carried from the canonical body (V, 3) onto posed
+    bodies (..., V, 3): their coefficients on the canonical frames, then
+    the markers rebuilt on the posed frames, in one call (the
+    TransformedCoeffs -> TransformedLms chain of stage i,
+    chmosh.py:182-191)."""
+    coeffs = marker_coeffs(can_verts, markers_latent, idx)
+    return reconstruct_markers(posed_verts, idx, coeffs)

@@ -48,6 +48,11 @@ init, the slerps between anchors, the report and the finalize) run on the
 global frames on the problem's device. Across processes (`parallel/
 multihost.py`) a rank solves its own shards and x is all-gathered after
 every phase.
+
+The inspection layer beside the solve: `make_stageii_residual` gives one
+frame's least-squares rows through the plain forward model (their
+`jacfwd` derives the system a second way), and `stageii_system_probe`
+assembles one (f, g, B) at the rigid init, shard by shard on a mesh.
 """
 
 from __future__ import annotations
@@ -220,13 +225,16 @@ def _betas_for_lbs(prob: StageIIProblem, opts: StageIIOptions,
     E = _num_extra(opts)
     if not E:
         return base
+    N = extra.shape[0]
     if opts.optimize_dynamics:
-        return torch.cat([base.expand(extra.shape[0], -1), extra], dim=1)
+        return torch.cat([base.expand(N, -1), extra], dim=1)
+    # built by concatenation, not written in place, so that
+    # `torch.func.vmap`/`jacfwd` trace it (`make_stageii_residual`)
     es = _extra_start(prob.sub_model, opts)
-    out = extra.new_zeros((extra.shape[0], es + E))
-    out[:, :base.shape[0]] = base
-    out[:, es:] = extra
-    return out
+    cols = [base[:es].expand(N, -1)]
+    if es > cols[0].shape[1]:
+        cols.append(extra.new_zeros((N, es - cols[0].shape[1])))
+    return torch.cat(cols + [extra], dim=1)
 
 
 def _problem(sub_model, local, coeffs, betas, opts) -> StageIIProblem:
@@ -340,6 +348,61 @@ def _velo_weight_vec(prob, opts, spec, device) -> torch.Tensor:
 # (bw,) -> (R,), whose rows the system squares (the horse's)
 Prior = Union[MaxMixturePrior, Callable[[torch.Tensor], torch.Tensor]]
 CALLABLE_PRIOR_RANGE = "stageii.callable_prior"
+
+
+def make_stageii_residual(prob: StageIIProblem,
+                          opts: StageIIOptions,
+                          prior: Optional[Prior],
+                          model_type: str):
+    """The least-squares rows of one frame, r(x (D,), aux) -> (R,), whose
+    sum of squares is the cost `make_stageii_system` assembles
+    (`moshpp_tpu/pipeline/stageii.py::make_stageii_residual`): the masked
+    data rows times `wt_data` through the plain forward model
+    (`simulate_markers`), the body prior (a GMM's rows or the callable's),
+    the hand, jaw and expression magnitudes, the DMPL magnitude and anchor,
+    and the velocity anchor, in the JAX package's row order.
+
+    aux holds one frame's values: markers (M, 3), mask (M,), wt_data,
+    anneal, wt_pose_scale (), velo_anchor (P,), velo_on () and, with DMPL
+    dims, extra_anchor (E,), extra_on (). No kernel runs here: the rows
+    trace under `torch.func.vmap`/`jacfwd`, so that
+    `solver.gauss_newton._residual_system(residual, batched_aux=True)` is a
+    second, independent derivation of the system (the generic-solver path).
+    """
+    spec = _term_spec(prob, opts, model_type)
+    wt = opts.wt
+    P = prob.sub_model.pose_dof
+    E = _num_extra(opts)
+    velo_w = _velo_weight_vec(prob, opts, spec, prob.device)
+    ids = (None if prior is None or spec.body_ids is None
+           else torch.as_tensor(spec.body_ids, device=prob.device))
+    is_gmm = isinstance(prior, MaxMixturePrior)
+
+    def residual(x: torch.Tensor, aux) -> torch.Tensor:
+        pose, extra = x[3:3 + P], x[3 + P:]
+        sim = simulate_markers(prob, opts, x[None])[0]
+        terms = [((sim - aux["markers"]) * aux["mask"][:, None]).reshape(-1)
+                 * aux["wt_data"]]
+        if ids is not None:
+            w = wt("poseB") * aux["anneal"] * aux["wt_pose_scale"]
+            xb = x[ids]
+            terms.append((gmm_prior_residual(prior, xb[None])[0] if is_gmm
+                          else prior(xb)) * w)
+        if spec.finger_rng is not None:
+            s, e = spec.finger_rng
+            terms.append(x[s:e] * (wt("poseH") * aux["anneal"]))
+        if spec.face_rng is not None:
+            s, e = spec.face_rng
+            terms.append(x[s:e] * (wt("poseF") * aux["anneal"]))
+            terms.append(extra * wt("expr"))
+        if opts.optimize_dynamics and E:
+            terms.append(extra * wt("dmpl"))
+            terms.append((extra - aux["extra_anchor"])
+                         * (6.0 * aux["extra_on"]))
+        terms.append((pose - aux["velo_anchor"]) * (velo_w * aux["velo_on"]))
+        return torch.cat(terms)
+
+    return residual
 
 
 def make_stageii_system(prob: StageIIProblem,
@@ -515,6 +578,11 @@ def report_term_names(prob: StageIIProblem, opts: StageIIOptions, prior,
     if opts.optimize_dynamics and _num_extra(opts):
         names += ["dmpl", "dmpl_anchor"]
     return tuple(sorted(names + ["velo"]))
+
+
+# the JAX package's name of the report's term names
+# (`moshpp_tpu/pipeline/stageii.py::report_arrays_spec`)
+report_arrays_spec = report_term_names
 
 
 def stageii_term_energies(prob: StageIIProblem, opts: StageIIOptions,
@@ -707,11 +775,7 @@ def mosh_stageii_solve(prob: StageIIProblem,
     device = torch.device(device)
     if prob.device.type != device.type:
         raise ValueError(f"problem lives on {prob.device}, asked for {device}")
-    if mesh is not None:
-        from moshpp_torch.parallel.sharding import FrameMesh
-        if not isinstance(mesh, FrameMesh):
-            raise TypeError(f"mesh: expected a parallel.FrameMesh, got "
-                            f"{type(mesh).__name__}")
+    _check_mesh(mesh)
     model_type = model_type or prob.sub_model.model_type
     if opts.chunk_frames and markers_obs.shape[0] > opts.chunk_frames:
         return _solve_chunked(prob, opts, markers_obs, mask, prior,
@@ -720,6 +784,15 @@ def mosh_stageii_solve(prob: StageIIProblem,
     with fp32_matmul():
         return _solve(prob, opts, markers_obs, mask, prior, model_type,
                       device, return_report, on_phase, mesh)
+
+
+def _check_mesh(mesh) -> None:
+    """TypeError unless `mesh` is None or a `parallel.FrameMesh`."""
+    if mesh is not None:
+        from moshpp_torch.parallel.sharding import FrameMesh
+        if not isinstance(mesh, FrameMesh):
+            raise TypeError(f"mesh: expected a parallel.FrameMesh, got "
+                            f"{type(mesh).__name__}")
 
 
 def _chunk_fingerprint(prob: StageIIProblem, inner_opts: StageIIOptions,
@@ -1106,7 +1179,9 @@ class _Shards:
                 stream.synchronize()
         return r
 
-    def solve(self, x, aux, pmask, e3, dl):
+    def _local(self, x, aux):
+        """x and aux padded to a multiple of the shards with zeros, and this
+        process's shards of them: [(x_i, aux_i)], in frame order."""
         mesh = self.mesh
         n_local = len(mesh.devices)
         F = x.shape[0]
@@ -1117,28 +1192,108 @@ class _Shards:
                    for k, v in aux.items()}
         Fs = x.shape[0] // mesh.num_shards
         lo = mesh.process_index * n_local * Fs
+        return [(x[lo + i * Fs: lo + (i + 1) * Fs],
+                 {k: v[lo + i * Fs: lo + (i + 1) * Fs]
+                  for k, v in aux.items()}) for i in range(n_local)]
+
+    def _gather(self, parts, F):
+        """The local shards' tensors (each (Fs, ...)) on `device`, every
+        process's concatenated in frame order, the pad dropped."""
+        block = torch.cat([p.to(self.device) for p in parts])
+        if self.mesh.num_processes > 1:
+            block = self.mesh.all_gather(block)
+        return block[:F]
+
+    def assemble(self, x, aux):
+        """(f, g, B (F, D, D)) of every frame, each shard assembled by its
+        device's system in turn (one assembly a shard, no threads)."""
+        outs = []
+        for i, (xs, auxs) in enumerate(self._local(x, aux)):
+            dev = self.mesh.devices[i]
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                outs.append(self.systems[dev].system_fn(
+                    xs.to(dev), {k: v.to(dev) for k, v in auxs.items()}))
+        F = x.shape[0]
+        return tuple(self._gather([o[j] for o in outs], F) for j in range(3))
+
+    def solve(self, x, aux, pmask, e3, dl):
+        n_local = len(self.mesh.devices)
+        F = x.shape[0]
+        shards = self._local(x, aux)
         if self.device.type == "cuda":
             # the shards' streams read x and aux: let the problem's device
             # finish writing them first
             torch.cuda.synchronize(self.device)
         with ThreadPoolExecutor(n_local,
                                 thread_name_prefix="stageii-shard") as pool:
-            futs = [pool.submit(
-                self._one, i, x[lo + i * Fs: lo + (i + 1) * Fs],
-                {k: v[lo + i * Fs: lo + (i + 1) * Fs]
-                 for k, v in aux.items()}, pmask, e3, dl)
-                for i in range(n_local)]
+            futs = [pool.submit(self._one, i, xs, auxs, pmask, e3, dl)
+                    for i, (xs, auxs) in enumerate(shards)]
             rs = [f.result() for f in futs]
         for i, r in enumerate(rs):
             self.syncs[i] += r.host_syncs
         # x and the iterations (exact in float32) travel as one block
-        block = torch.cat([torch.cat([r.x.to(self.device),
-                                      r.iterations.to(self.device)[:, None]
-                                      .to(x.dtype)], dim=1) for r in rs])
-        if mesh.num_processes > 1:
-            block = mesh.all_gather(block)
-        block = block[:F]
+        block = self._gather([torch.cat([r.x, r.iterations[:, None]
+                                         .to(x.dtype)], dim=1) for r in rs],
+                             F)
         return block[:, :-1].contiguous(), block[:, -1].to(torch.int32)
+
+
+def stageii_system_probe(prob: StageIIProblem,
+                         opts: StageIIOptions,
+                         markers_obs,
+                         mask,
+                         prior: Optional[Prior] = None,
+                         model_type: Optional[str] = None,
+                         mesh=None):
+    """One batched Gauss-Newton system (f (F,), g (F, D), B (F, D, D)) at
+    the rigid-init point (`moshpp_tpu/pipeline/stageii.py::
+    stageii_system_probe`), on the problem's device: the data weights of
+    the observed markers, anneal = 1 + (M - n_obs) / M x wt("annealing"),
+    the anchor pass's prior scale 10, the velocity and extra anchors off.
+
+    With `mesh` (a `parallel.FrameMesh`) the frames are laid out as a
+    sharded solve lays them out (`_Shards`): x0 and the finished aux padded
+    with zeros to a multiple of the shards, as the JAX package pads them
+    (a pad frame has zero weights), each contiguous shard assembled on its
+    device, gathered back (over processes with `mesh.all_gather`) and the
+    pad dropped. The real frames' rows do not depend on the pad. Held
+    against the unsharded probe it pins the frame decomposition to
+    rounding, which a whole solve of a system of condition ~1e7 cannot.
+    """
+    _check_mesh(mesh)
+    model_type = model_type or prob.sub_model.model_type
+    system = make_stageii_system(prob, opts, prior, model_type)
+    with fp32_matmul():
+        x0, aux = probe_inputs(prob, opts, markers_obs, mask)
+        if mesh is None:
+            return system.system_fn(x0, aux)
+        shards = _Shards(mesh, prob, opts, prior, model_type, system,
+                         prob.device)
+        return shards.assemble(x0, aux)
+
+
+def probe_inputs(prob: StageIIProblem, opts: StageIIOptions, markers_obs,
+                 mask):
+    """`stageii_system_probe`'s point and aux: (x0 (F, D) the rigid init,
+    aux of every frame) on the problem's device."""
+    dev = prob.device
+    obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=dev)
+    maskf = torch.as_tensor(mask, device=dev).to(torch.float32)
+    F, M = maskf.shape
+    P = prob.sub_model.pose_dof
+    E = _num_extra(opts)
+    wt = opts.wt
+    n_obs = torch.sum(maskf, dim=1)
+    zeros = lambda *shape: torch.zeros((F,) + shape, device=dev)
+    aux = {"markers": obs, "mask": maskf,
+           "wt_data": wt("data") * NUM_TRAIN_MARKERS
+           / torch.clamp(n_obs, min=1.0),
+           "anneal": 1.0 + (M - n_obs) / M * wt("annealing"),
+           "wt_pose_scale": torch.full((F,), 10.0, device=dev),
+           "velo_anchor": zeros(P), "velo_on": zeros(),
+           "extra_anchor": zeros(E), "extra_on": zeros()}
+    return rigid_init(prob, opts, obs, maskf), aux
 
 
 def _finalize(prob, opts, x, iters, markers_obs, maskf, syncs) -> StageIIResult:

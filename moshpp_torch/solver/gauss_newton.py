@@ -12,6 +12,8 @@ Straggler compaction (`batched_system_solve`): the full batch iterates while
 more than N/b problems are active (for each b of `compact_buckets`), then a
 stable argsort of the done flags gathers the stragglers into an N/b bucket,
 which finishes alone; the results are scattered back.
+`batched_system_solve_traced` runs the plain loop for exactly `maxiter`
+iterations with no host read and records each iteration.
 """
 
 from __future__ import annotations
@@ -274,6 +276,14 @@ def _take(tree, idx):
     return type(tree)(*[v[idx] for v in tree])
 
 
+def _full_mask(x0: torch.Tensor, param_mask: Optional[torch.Tensor]):
+    """The (N, D) {0, 1} mask of x0's parameters: all ones, or param_mask
+    (D,) or (N, D) broadcast."""
+    if param_mask is None:
+        return torch.ones_like(x0)
+    return param_mask.to(x0.dtype).expand(x0.shape).contiguous()
+
+
 def batched_system_solve(system: GNSystem,
                          x0: torch.Tensor,
                          aux: dict,
@@ -290,11 +300,8 @@ def batched_system_solve(system: GNSystem,
     """
     opts = options
     e_3 = opts.e_3 if e_3 is None else e_3
-    N, D = x0.shape
-    if param_mask is None:
-        mask = torch.ones_like(x0)
-    else:
-        mask = param_mask.to(x0.dtype).expand(N, D).contiguous()
+    N = x0.shape[0]
+    mask = _full_mask(x0, param_mask)
     syncs = 0
 
     def run_stage(s: _State, aux_s, mask_s, min_active: int) -> _State:
@@ -336,6 +343,60 @@ def batched_system_solve(system: GNSystem,
         s = inner
     return SolveResult(x=s.x, cost=s.f, iterations=s.it,
                        converged=s.converged, host_syncs=syncs)
+
+
+def batched_system_solve_traced(system: GNSystem,
+                                x0: torch.Tensor,
+                                aux: dict,
+                                options: DoglegOptions = DoglegOptions(),
+                                param_mask: Optional[torch.Tensor] = None,
+                                e_3: Optional[float] = None,
+                                record_x: bool = False):
+    """`batched_system_solve` with a per-iteration record of the optimizer
+    (`moshpp_tpu/solver/gauss_newton.py::batched_system_solve_traced`): the
+    headless stand-in for the reference's on-step visualisation
+    (chmosh.py:235-245, 516-519); `tools/profile_stageii_torch.py --trace`
+    writes it as CSV.
+
+    Runs exactly `options.maxiter` iterations on the whole batch, with no
+    early exit, no compaction and no device-to-host read inside the loop
+    (`host_syncs` 0): frames that are done stay frozen as in the
+    production loop, so x, the cost and the per-frame iterations equal the
+    plain loop's (`compact_buckets=()`). Returns (SolveResult, trace), the
+    trace tensors on x0's device, (maxiter, N): `f`, `delta`, `accepted`
+    (the frame was active and its x moved) and `active` (not done before
+    the iteration), and with `record_x` also `x` (maxiter, N, D). A
+    debugging tool: it always costs maxiter full iterations.
+    """
+    opts = options
+    e_3 = opts.e_3 if e_3 is None else e_3
+    N, D = x0.shape
+    T = opts.maxiter
+    mask = _full_mask(x0, param_mask)
+    empty = lambda *shape, dtype=x0.dtype: torch.empty(
+        (T,) + shape, dtype=dtype, device=x0.device)
+    trace = {"f": empty(N), "delta": empty(N),
+             "accepted": empty(N, dtype=torch.bool),
+             "active": empty(N, dtype=torch.bool)}
+    if record_x:
+        trace["x"] = empty(N, D)
+    with fp32_matmul():
+        s = _init_state(x0, system.cost_fn(x0, aux), opts)
+        for i in range(T):
+            x_prev, done_prev = s.x, s.done
+            s = _step(system, opts, e_3, s, aux, mask)
+            s = s._replace(done=s.done | (s.it >= opts.maxiter))
+            # an accepted step moves x (pred ~ 0 forces rho ~ 0, a reject),
+            # so a moved x is the accept decision, as in the JAX package
+            trace["f"][i] = s.f
+            trace["delta"][i] = s.delta
+            trace["accepted"][i] = (~done_prev) & torch.any(s.x != x_prev,
+                                                            dim=-1)
+            trace["active"][i] = ~done_prev
+            if record_x:
+                trace["x"][i] = s.x
+    return SolveResult(x=s.x, cost=s.f, iterations=s.it,
+                       converged=s.converged, host_syncs=0), trace
 
 
 @contextlib.contextmanager

@@ -4,7 +4,8 @@ tests/test_multihost.py's world (16 frames, 8 a process) with
 `mosh_stageii_solve_multihost`, and their gathered frames meet phase 3's
 gate of chip_smoke.py (mean marker error within 0.02 mm, wander within
 0.6 mm) against the single-process 2-shard solve; the mean error stays
-under tests/test_multihost.py's 5 mm; `distribute_jobs` gives every job to
+under tests/test_multihost.py's 5 mm; the system probe on the group's
+mesh equals the one-process probe; `distribute_jobs` gives every job to
 exactly one process. Each process runs under a timeout."""
 
 import os
@@ -70,6 +71,22 @@ def test_two_processes_match_two_shards(ranks):
     for r in ranks:
         assert r["data_err"].mean() * 1e3 < 5.0
         assert str(r["backend"]) == "gloo" and int(r["shards"]) == PROCESSES
+
+
+def test_probe_over_processes_matches_unsharded(ranks):
+    """`stageii_system_probe` on the group's mesh (each rank assembles its
+    shard, the frames gathered over gloo) equals the one-process probe on
+    every rank, max|diff| / max|unsharded| <= 1e-5 for f, g and B
+    (__graft_entry__.py:155-160)."""
+    prob, opts, obs, mask = multihost_world()
+    ref = stageii.stageii_system_probe(prob, opts, obs, mask,
+                                       model_type="smplh")
+    for r in ranks:
+        for name, b in zip("fgB", ref):
+            a = torch.as_tensor(r[f"probe_{name}"])
+            assert a.shape == b.shape, name
+            rel = float((a - b).abs().max() / b.abs().max())
+            assert rel <= 1e-5, (name, rel)
 
 
 def test_jobs_partition_exactly(ranks):

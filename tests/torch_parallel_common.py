@@ -71,9 +71,13 @@ res = mosh_stageii_solve_multihost(prob, opts, obs[rank * Fl:(rank + 1) * Fl],
                                    mask[rank * Fl:(rank + 1) * Fl],
                                    model_type="smplh", device="cpu")
 assert res.trans.shape == (Fl, 3)
+from moshpp_torch.pipeline.stageii import stageii_system_probe
+probe = stageii_system_probe(prob, opts, obs, mask, model_type="smplh",
+                             mesh=global_frame_mesh())
 np.savez(sys.argv[6], markers_sim=res.markers_sim, data_err=res.data_err,
          jobs=[j["job"] for j in distribute_jobs([{"job": i}
                                                   for i in range(5)])],
          backend=multihost_backend(),
-         shards=global_frame_mesh().shape["frames"])
+         shards=global_frame_mesh().shape["frames"],
+         **{f"probe_{k}": v.numpy() for k, v in zip("fgB", probe)})
 """
