@@ -13,9 +13,10 @@ Each kernel wrapper adds one to `COUNTS.launches[name]` per launch (the
 `fk_smalls` and `marker_rows` wrappers also to `COUNTS.frames[(name, F)]`,
 keyed by the launch's frame count); each plain (PyTorch) version adds one to
 `COUNTS.plain_cuda[name]` when it runs on CUDA tensors, which only
-comparisons against the kernel should do. The counts and the first build
-are taken under a lock: a solve on a mesh launches from one host thread a
-shard.
+comparisons against the kernel should do. `COUNTS.frames` also carries the
+counters of the work around the kernels (`Counts`). The counts and the
+first build are taken under a lock: a solve on a mesh launches from one
+host thread a shard.
 """
 
 from __future__ import annotations
@@ -46,8 +47,20 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 @dataclasses.dataclass
 class Counts:
     """Launch counts of the kernel wrappers and of the plain versions run on
-    CUDA tensors, keyed by kernel name; `frames` keyed by (kernel name,
-    frames of the launch) where the wrapper gives them."""
+    CUDA tensors, keyed by kernel name; `frames` keyed by (name, frames):
+
+    - (kernel, F): launches of `fk_smalls<..>` and `marker_rows<..>` at F
+      frames;
+    - ("dogleg_direction<cg=I>", N): launches of the fused direction kernel
+      with I CG iterations over N systems (`launches["dogleg_direction"]`
+      counts them all);
+    - ("gn.step", K): iterations of `batched_system_solve` over a batch of
+      K frames (the full batch or a compaction bucket);
+    - ("gn.active", K): not launches but a sum of frames: the frames still
+      active in those iterations. Summed over K it is the frame-iterations,
+      the solves' `iterations` summed; sum K x ("gn.step", K) is the rows
+      computed.
+    """
     launches: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     plain_cuda: collections.Counter = dataclasses.field(
@@ -224,6 +237,13 @@ def count_launch(kernel: str, frames: int = None) -> None:
         COUNTS.launches[kernel] += 1
         if frames is not None:
             COUNTS.frames[(kernel, frames)] += 1
+
+
+def count_frames(name: str, frames: int, n: int = 1) -> None:
+    """Add `n` to COUNTS.frames[(name, frames)], and nothing to the
+    launches."""
+    with _LOCK:
+        COUNTS.frames[(name, frames)] += n
 
 
 @functools.lru_cache(maxsize=None)

@@ -48,6 +48,7 @@ from moshpp_torch.priors.gmm import MaxMixturePrior, gmm_prior_residual
 from moshpp_torch.solver.gauss_newton import (DoglegOptions,
                                               batched_dogleg_solve,
                                               dogleg_solve, fp32_matmul)
+from moshpp_torch.utils import spans
 
 NUM_TRAIN_MARKERS = 46.0  # chmosh.py:101
 
@@ -61,7 +62,7 @@ DEFAULT_STAGEI_WEIGHTS = {
 
 # profiler range of the host-side freeze of each annealing step
 # (tools/profile_torch_slice.py --problem stagei reads it)
-FREEZE_RANGE = "stagei.freeze"
+FREEZE_RANGE = spans.FREEZE
 
 # the fields of a subject's context that the batched solve's one residual
 # closes over (the frozen structure carries the rest): they must be equal
@@ -299,7 +300,7 @@ def _face_sq_distances(verts: torch.Tensor, faces: torch.Tensor,
     return torch.sum((pj - cp) ** 2, dim=-1)
 
 
-@torch.profiler.record_function(FREEZE_RANGE)
+@spans.spanned(FREEZE_RANGE)
 def _freeze_stagei_structure(ctx: _StageICtx, betas: torch.Tensor,
                              latents: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The discrete structure at (betas, latents), frozen for one annealing

@@ -37,7 +37,12 @@ Telemetry: `return_report=True` adds a `StageIIReport` (each phase's mean
 per-term energies before and after it, and its mean iterations), computed
 on the device beside the solve and read once at its end; `on_phase` reads
 each phase's x and simulated markers to the host. Without them a solve
-launches and syncs as it would with neither.
+launches and syncs as it would with neither. Under `torch.profiler` the
+solve opens the spans of `utils/spans.py` (`stageii.solve`, a
+`stageii.phase.<name>` a phase, the system's data rows, normal equations,
+prior and cost, the dogleg's steps, direction, post-step and compaction),
+and the solver counts its frame-iterations in `kernels.COUNTS.frames`;
+with no profiler recording a span costs under a microsecond.
 
 On a mesh (`mesh=`, a `parallel.FrameMesh`) each phase's dogleg solve runs
 on contiguous shards of the frames, each shard on its device from a host
@@ -88,6 +93,8 @@ from moshpp_torch.priors.gmm import (MaxMixturePrior, gmm_prior_residual,
 from moshpp_torch.solver.gauss_newton import (JAC_PRECISIONS, DoglegOptions,
                                               GNSystem, batched_system_solve,
                                               check_choice, fp32_matmul)
+from moshpp_torch.utils import spans
+from moshpp_torch.utils.spans import span, spanned
 
 # the JAX package's `jac_backend` values (moshpp_tpu/pipeline/stageii.py:136)
 JAC_BACKENDS = ("auto", "pallas", "xla")
@@ -347,7 +354,7 @@ def _velo_weight_vec(prob, opts, spec, device) -> torch.Tensor:
 # a body prior: a max-mixture GMM, or a callable on one frame's body slice,
 # (bw,) -> (R,), whose rows the system squares (the horse's)
 Prior = Union[MaxMixturePrior, Callable[[torch.Tensor], torch.Tensor]]
-CALLABLE_PRIOR_RANGE = "stageii.callable_prior"
+CALLABLE_PRIOR_RANGE = spans.CALLABLE_PRIOR
 
 
 def make_stageii_residual(prob: StageIIProblem,
@@ -471,7 +478,7 @@ def make_stageii_system(prob: StageIIProblem,
         # the slice made contiguous: on a strided one vmap(jacfwd)'s tangent
         # product runs as cuBLAS's batched GEMV, ~5x slower on the H100
         xb = xb.contiguous()
-        with torch.profiler.record_function(CALLABLE_PRIOR_RANGE):
+        with span(CALLABLE_PRIOR_RANGE):
             if cost_only:
                 rp = prior_rows(xb)
                 return f + w2 * torch.sum(rp * rp, -1), None, None
@@ -528,33 +535,39 @@ def make_stageii_system(prob: StageIIProblem,
     def data_weights(aux):
         return aux["mask"] * aux["wt_data"][:, None]               # (N, M)
 
+    @spanned(spans.ASSEMBLY)
     def system_fn(x, aux):
         N = x.shape[0]
-        wrow = data_weights(aux)
-        if opts.fold_weights:
-            rd, Jd = marker_resid_and_wjac(model, tables, x, aux["markers"],
-                                           wrow)
-        else:
-            sim, Jm = marker_sim_and_jacobian(model, tables, x)
-            rd = (sim - aux["markers"]) * wrow[..., None]
-            Jd = Jm * wrow[..., None, None]
-        f0 = torch.sum(rd * rd, dim=(1, 2))
-        g0 = torch.sum(Jd * rd[..., None], dim=(1, 2))
-        J2 = Jd.reshape(N, -1, D)
-        P0 = 0.5 * torch.bmm(J2.transpose(1, 2), J2)
-        f, gq, dvec, ppw = quad(x, aux, f0, cost_only=False)
-        # symmetrize as the JAX assembly does (B = P0 + P0ᵀ): the direction
-        # kernel reads only B's leading index
-        B = P0 + P0.transpose(1, 2) + torch.diag_embed(dvec)
-        if ppw is not None:
-            if ids is None:
-                s, e = spec.body_rng
-                B[:, s:e, s:e] += ppw
+        with span(spans.DATA_ROWS):
+            wrow = data_weights(aux)
+            if opts.fold_weights:
+                rd, Jd = marker_resid_and_wjac(model, tables, x,
+                                               aux["markers"], wrow)
             else:
-                # the ids are distinct: the gathered add is a plain add
-                B[:, ids[:, None], ids[None, :]] += ppw
-        return f, g0 + gq, B
+                sim, Jm = marker_sim_and_jacobian(model, tables, x)
+                rd = (sim - aux["markers"]) * wrow[..., None]
+                Jd = Jm * wrow[..., None, None]
+        with span(spans.NORMAL_EQ):
+            f0 = torch.sum(rd * rd, dim=(1, 2))
+            g0 = torch.sum(Jd * rd[..., None], dim=(1, 2))
+            J2 = Jd.reshape(N, -1, D)
+            P0 = 0.5 * torch.bmm(J2.transpose(1, 2), J2)
+        with span(spans.PRIOR):
+            f, gq, dvec, ppw = quad(x, aux, f0, cost_only=False)
+        with span(spans.NORMAL_EQ):
+            # symmetrize as the JAX assembly does (B = P0 + P0ᵀ): the
+            # direction kernel reads only B's leading index
+            B = P0 + P0.transpose(1, 2) + torch.diag_embed(dvec)
+            if ppw is not None:
+                if ids is None:
+                    s, e = spec.body_rng
+                    B[:, s:e, s:e] += ppw
+                else:
+                    # the ids are distinct: the gathered add is a plain add
+                    B[:, ids[:, None], ids[None, :]] += ppw
+            return f, g0 + gq, B
 
+    @spanned(spans.COST)
     def cost_fn(x, aux):
         rd = (marker_sim(model, tables, x) - aux["markers"]) * data_weights(
             aux)[..., None]
@@ -687,6 +700,7 @@ def _param_masks(model: SurfaceModel, opts: StageIIOptions, model_type: str,
     return t(step1), t(step2)
 
 
+@spanned(spans.RIGID_INIT)
 def rigid_init(prob: StageIIProblem, opts: StageIIOptions,
                markers_obs: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-frame rigid initialization about the root joint: packed x0 (F, D)."""
@@ -742,6 +756,7 @@ def _velo_aux(x: torch.Tensor, P: int, dynamics: bool) -> dict:
     return out
 
 
+@spanned(spans.SOLVE)
 def mosh_stageii_solve(prob: StageIIProblem,
                        opts: StageIIOptions,
                        markers_obs,
@@ -914,8 +929,10 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
     if ckpt_dir:
         os.makedirs(ckpt_dir, exist_ok=True)
 
-    pieces, reps, kept = [], [], []
-    for s in range(0, F, C):
+    def solve_chunk(s):
+        """(the kept interior of the chunk from frame s, its report or
+        None): loaded from its checkpoint where that matches, else
+        solved."""
         lo, hi = max(0, s - H), min(F, s + C + H)
         obs_c, msk_c = obs[lo:hi], msk[lo:hi]
         pad = W - (hi - lo)
@@ -925,7 +942,6 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
             # but at the sequence's end, sits >= H frames from anything kept
             obs_c = torch.cat([obs_c, obs_c[-1:].expand(pad, -1, -1)])
             msk_c = torch.cat([msk_c, msk_c[-1:].expand(pad, -1)])
-        n_keep = min(C, F - s)
         path = fp = None
         if ckpt_dir:
             fp = _chunk_fingerprint(prob, inner_opts, prior, model_type,
@@ -933,24 +949,27 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
             path = os.path.join(ckpt_dir, f"chunk_{s:09d}.npz")
             cached = _chunk_ckpt_load(path, fp, device, return_report)
             if cached is not None:
-                pieces.append(cached[0])
-                reps.append(cached[1])
-                kept.append(n_keep)
-                continue
+                return cached
         out = mosh_stageii_solve(prob, inner_opts, obs_c, msk_c, prior=prior,
                                  model_type=model_type, device=device,
                                  return_report=return_report,
                                  on_phase=on_phase, mesh=mesh)
         res, rep = out if return_report else (out, None)
-        take = slice(s - lo, s - lo + n_keep)
+        take = slice(s - lo, s - lo + min(C, F - s))
         piece = StageIIResult(*[getattr(res, f)[take]
                                 for f in StageIIResult._fields[:-1]],
                               host_syncs=res.host_syncs)
         if ckpt_dir:
             _chunk_ckpt_save(path, fp, piece, rep)
+        return piece, rep
+
+    pieces, reps = [], []
+    for s in range(0, F, C):
+        with span(spans.CHUNK):
+            piece, rep = solve_chunk(s)
         pieces.append(piece)
         reps.append(rep)
-        kept.append(n_keep)
+    kept = [min(C, F - s) for s in range(0, F, C)]
 
     result = StageIIResult(
         *[torch.cat([getattr(p, f) for p in pieces])
@@ -1025,25 +1044,30 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
 
     def run(x, aux, pmask, e3, dl, use_velo=False, name=None):
         nonlocal syncs
-        if use_velo:
-            # on the global frames: the 2-frame halo crosses the shards
-            aux = dict(aux, **_velo_aux(x, P, opts.optimize_dynamics))
-        eb = mean_energies(x, aux) if return_report else None
-        if shards is not None:
-            xs, its = shards.solve(x, aux, pmask, e3, dl)
-        else:
-            r = batched_system_solve(system, x, aux, dl, param_mask=pmask,
-                                     e_3=e3,
-                                     compact_buckets=opts.compact_buckets)
-            xs, its = r.x, r.iterations
-            syncs += r.host_syncs
-        if return_report:
-            reports.append((eb, mean_energies(xs, aux),
-                            its.to(torch.float64).mean()))
-        if on_phase is not None:
-            on_phase(name, xs.cpu().numpy(),
-                     simulate_markers(prob, opts, xs).cpu().numpy())
-        return xs, its
+        with span(spans.phase(name)):
+            if use_velo:
+                # on the global frames: the 2-frame halo crosses the shards
+                with span(spans.VELO_AUX):
+                    aux = dict(aux, **_velo_aux(x, P, opts.optimize_dynamics))
+            if return_report:
+                with span(spans.REPORT):
+                    eb = mean_energies(x, aux)
+            if shards is not None:
+                xs, its = shards.solve(x, aux, pmask, e3, dl)
+            else:
+                r = batched_system_solve(system, x, aux, dl, param_mask=pmask,
+                                         e_3=e3,
+                                         compact_buckets=opts.compact_buckets)
+                xs, its = r.x, r.iterations
+                syncs += r.host_syncs
+            if return_report:
+                with span(spans.REPORT):
+                    reports.append((eb, mean_energies(xs, aux),
+                                    its.to(torch.float64).mean()))
+            if on_phase is not None:
+                on_phase(name, xs.cpu().numpy(),
+                         simulate_markers(prob, opts, xs).cpu().numpy())
+            return xs, its
 
     step1_mask, step2_mask = _param_masks(model, opts, model_type, device)
     aux_full = aux_for(None)
@@ -1061,15 +1085,18 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
                         dl_opts, name=f"anneal{scale:g}")
         xa, _ = run(xa, aux_for(a), step2_mask, 1e-2, dl_opts,
                     name="anchor_step2")
-        seg = np.minimum(np.searchsorted(anchor_ids, np.arange(F), "right") - 1,
-                         len(anchor_ids) - 2)
-        lo = anchor_ids[seg]
-        hi = anchor_ids[seg + 1]
-        alpha = torch.as_tensor(
-            ((np.arange(F) - lo) / np.maximum(hi - lo, 1)).astype(np.float32),
-            device=device)
-        x = _interp_x(xa, torch.as_tensor(seg, device=device),
-                      torch.as_tensor(seg + 1, device=device), alpha, model)
+        with span(spans.SLERP):
+            seg = np.minimum(
+                np.searchsorted(anchor_ids, np.arange(F), "right") - 1,
+                len(anchor_ids) - 2)
+            lo = anchor_ids[seg]
+            hi = anchor_ids[seg + 1]
+            alpha = torch.as_tensor(
+                ((np.arange(F) - lo) / np.maximum(hi - lo, 1)).astype(
+                    np.float32), device=device)
+            x = _interp_x(xa, torch.as_tensor(seg, device=device),
+                          torch.as_tensor(seg + 1, device=device), alpha,
+                          model)
     else:
         x = rigid_init(prob, opts, obs, maskf)
         for scale in (10.0, 5.0, 1.0):
@@ -1105,8 +1132,9 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
     result = _finalize(prob, opts, x, iters, obs, maskf, syncs)
     if not return_report:
         return result
-    eb, ea, it = (torch.stack([r[i] for r in reports]).cpu().numpy()
-                  for i in range(3))
+    with span(spans.REPORT):
+        eb, ea, it = (torch.stack([r[i] for r in reports]).cpu().numpy()
+                      for i in range(3))
     return result, StageIIReport(
         phase_names=STAGEII_PHASE_NAMES,
         term_names=report_term_names(prob, opts, prior, model_type),
@@ -1296,6 +1324,7 @@ def probe_inputs(prob: StageIIProblem, opts: StageIIOptions, markers_obs,
     return rigid_init(prob, opts, obs, maskf), aux
 
 
+@spanned(spans.FINALIZE)
 def _finalize(prob, opts, x, iters, markers_obs, maskf, syncs) -> StageIIResult:
     model = prob.sub_model
     trans, pose, extra = split_x(x, model.pose_dof)

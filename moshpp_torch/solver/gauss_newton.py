@@ -24,6 +24,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from moshpp_torch import kernels
+from moshpp_torch.utils import spans
+from moshpp_torch.utils.spans import span, spanned
+
 # The values the JAX package's `jac_precision` takes: it hands the field to
 # `jax.default_matmul_precision` (moshpp_tpu/solver/gauss_newton.py:374,
 # moshpp_tpu/pipeline/stageii.py:697), whose values these are.
@@ -105,12 +109,12 @@ def _bmv(B, v):
 
 # profiler ranges of the residual-driven system and of the Cholesky
 # direction (tools/profile_torch_slice.py --problem stagei reads them)
-JACOBIAN_RANGE = "gn.jacfwd"
-NORMAL_RANGE = "gn.normal_equations"
-CHOLESKY_RANGE = "gn.cholesky"
+JACOBIAN_RANGE = spans.JACFWD
+NORMAL_RANGE = spans.NORMAL_EQUATIONS
+CHOLESKY_RANGE = spans.CHOLESKY
 
 
-@torch.profiler.record_function(CHOLESKY_RANGE)
+@spanned(CHOLESKY_RANGE)
 def _gn_direction_cholesky(g, B):
     """Exact GN direction via Cholesky: (p_gn (N, D), ok (N,))."""
     L, info = torch.linalg.cholesky_ex(B)
@@ -249,13 +253,15 @@ def _step(system: GNSystem, opts: DoglegOptions, e_3, s: _State, aux,
           mask) -> _State:
     """One dogleg iteration for the whole batch."""
     _, g, B = system.system_fn(s.x, aux)
-    g = g * mask
-    p, p_gn, pred = _direction(g, B, s, mask, opts)
-    x_new = s.x + p
+    with span(spans.DIRECTION):
+        g = g * mask
+        p, p_gn, pred = _direction(g, B, s, mask, opts)
+        x_new = s.x + p
     f_new = system.cost_fn(x_new, aux)
-    g_norm = torch.linalg.vector_norm(g, dim=-1)
-    return _post_step_from_pred(s, g_norm, pred, p, p_gn, x_new, f_new,
-                                opts, e_3)
+    with span(spans.POST_STEP):
+        g_norm = torch.linalg.vector_norm(g, dim=-1)
+        return _post_step_from_pred(s, g_norm, pred, p, p_gn, x_new, f_new,
+                                    opts, e_3)
 
 
 def _init_state(x0, f0, opts: DoglegOptions) -> _State:
@@ -284,6 +290,7 @@ def _full_mask(x0: torch.Tensor, param_mask: Optional[torch.Tensor]):
     return param_mask.to(x0.dtype).expand(x0.shape).contiguous()
 
 
+@spanned(spans.GN_SOLVE)
 def batched_system_solve(system: GNSystem,
                          x0: torch.Tensor,
                          aux: dict,
@@ -297,6 +304,12 @@ def batched_system_solve(system: GNSystem,
     x0 (N, D); every `aux` value carries a leading N; param_mask (D,) or
     (N, D) {0, 1}, zero entries frozen at x0. `compact_buckets=()` runs the
     plain batched loop.
+
+    Each iteration adds to `kernels.COUNTS.frames` one at ("gn.step", K)
+    and its active frames at ("gn.active", K), K the iteration's batch (N
+    or a compaction bucket): their sums are the frame-iterations (the
+    final `iterations` summed) and the rows computed. Both counts are on
+    the host already: no sync, no launch.
     """
     opts = options
     e_3 = opts.e_3 if e_3 is None else e_3
@@ -306,13 +319,18 @@ def batched_system_solve(system: GNSystem,
 
     def run_stage(s: _State, aux_s, mask_s, min_active: int) -> _State:
         nonlocal syncs
+        batch = s.x.shape[0]
         while True:
-            n_active = int(((~s.done) & (s.it < opts.maxiter)).sum())
+            with span(spans.ACTIVE_READ):
+                n_active = int(((~s.done) & (s.it < opts.maxiter)).sum())
             syncs += 1
             if n_active == 0 or (min_active > 0 and n_active <= min_active):
                 return s
-            s = _step(system, opts, e_3, s, aux_s, mask_s)
-            s = s._replace(done=s.done | (s.it >= opts.maxiter))
+            kernels.count_frames("gn.step", batch)
+            kernels.count_frames("gn.active", batch, n_active)
+            with span(spans.STEP):
+                s = _step(system, opts, e_3, s, aux_s, mask_s)
+                s = s._replace(done=s.done | (s.it >= opts.maxiter))
 
     s = _init_state(x0, system.cost_fn(x0, aux), opts)
     buckets = [N // b for b in compact_buckets if N // b >= 8]
@@ -324,22 +342,25 @@ def batched_system_solve(system: GNSystem,
         idxs = []
         for i, K in enumerate(buckets):
             s_o, aux_o, mask_o = levels[-1]
-            # stable: actives first, in their original order
-            idx = torch.argsort(s_o.done.to(torch.int32), stable=True)[:K]
+            with span(spans.COMPACT):
+                # stable: actives first, in their original order
+                idx = torch.argsort(s_o.done.to(torch.int32), stable=True)[:K]
+                aux_i, mask_i = _take(aux_o, idx), mask_o[idx]
+                s_i = _take(s_o, idx)
             nxt = buckets[i + 1] if i + 1 < len(buckets) else 0
-            aux_i, mask_i = _take(aux_o, idx), mask_o[idx]
-            sub = run_stage(_take(s_o, idx), aux_i, mask_i, nxt)
+            sub = run_stage(s_i, aux_i, mask_i, nxt)
             levels.append((sub, aux_i, mask_i))
             idxs.append(idx)
-        inner = levels[-1][0]
-        for lvl in range(len(idxs) - 1, -1, -1):
-            outer = levels[lvl][0]
-            merged = []
-            for a, b in zip(outer, inner):
-                a = a.clone()
-                a[idxs[lvl]] = b
-                merged.append(a)
-            inner = _State(*merged)
+        with span(spans.SCATTER):
+            inner = levels[-1][0]
+            for lvl in range(len(idxs) - 1, -1, -1):
+                outer = levels[lvl][0]
+                merged = []
+                for a, b in zip(outer, inner):
+                    a = a.clone()
+                    a[idxs[lvl]] = b
+                    merged.append(a)
+                inner = _State(*merged)
         s = inner
     return SolveResult(x=s.x, cost=s.f, iterations=s.it,
                        converged=s.converged, host_syncs=syncs)
@@ -429,9 +450,9 @@ def _residual_system(residual_fn: Callable, batched_aux: bool) -> GNSystem:
     res = torch.func.vmap(residual_fn, in_dims=in_dims)
 
     def system_fn(x, aux):
-        with torch.profiler.record_function(JACOBIAN_RANGE):
+        with span(JACOBIAN_RANGE):
             J, r = jac(x, aux)
-        with torch.profiler.record_function(NORMAL_RANGE):
+        with span(NORMAL_RANGE):
             Jt = J.transpose(1, 2)
             return (torch.sum(r * r, dim=-1),
                     torch.bmm(Jt, r[..., None])[..., 0], torch.bmm(Jt, J))

@@ -164,7 +164,8 @@ def dogleg_direction_batched(g: torch.Tensor, B: torch.Tensor,
 
     (g_masked (N, D), B (N, D, D) raw symmetric, plin (N, D), mask (N, D),
     delta (N,)) -> (p (N, D) dogleg step, p_gn (N, D) warm start for the
-    next iteration, pred (N,) model reduction).
+    next iteration, pred (N,) model reduction). A launch also counts one at
+    `kernels.COUNTS.frames[("dogleg_direction<cg=iters>", N)]`.
     """
     N, D = g.shape
     check_direction_width(D)
@@ -181,6 +182,7 @@ def dogleg_direction_batched(g: torch.Tensor, B: torch.Tensor,
     kernels.launch("dogleg_direction_launch", KERNEL, N, D, int(iters),
                    float(damping), P(g), P(B), P(plin), P(mask), P(delta),
                    P(p), P(p_gn), P(pred))
+    kernels.count_frames(f"{KERNEL}<cg={int(iters)}>", N)
     return p, p_gn, pred
 
 

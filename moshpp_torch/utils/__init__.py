@@ -1,1 +1,1 @@
-"""Host-side helpers (logging, rotations)."""
+"""Host-side helpers (logging, rotations, profiler spans)."""

@@ -25,8 +25,12 @@ pass.
 
 Profile: two warm-up solves, one untraced timed solve, then one solve under
 torch.profiler. Prints the untraced and traced wall, the device time summed
-over kernels, the idle share of the untraced wall, the peak device memory
-and the card, and writes the per-kernel table (self device time, calls) to
+over kernels, the traced solve's busy share of its own traced wall, the
+peak device memory and the card, the device time and calls under each of
+the program's spans (`moshpp_torch/utils/spans.py`: the phases, the system
+assembly's data rows, normal equations, prior and cost, the dogleg's
+direction, post-step, compaction and scatter; a span's device time counts
+its children's), and writes the per-kernel table (self device time, calls) to
 chiprun_out/profile_slice.txt (profile_<problem>.txt for the others,
 with `_fold` before the suffix for the folded slice), followed by the
 traced solve's launches of each `fk_smalls` and `marker_rows`
@@ -34,15 +38,14 @@ instantiation by frame count (the launch counters, `kernels.COUNTS.frames`)
 and, for `fk_smalls`, those counts times its device ms at each frame count:
 the solve's estimated `fk_smalls` time and the share of the small batches
 (F <= 513: the anchor pass and the compaction buckets). With a callable
-prior (the horse) the header also gives the device time under the
-system's `stageii.callable_prior` profiler range (its rows and Jacobian by
-vmap(jacfwd), and their products) and its share of the device time.
+prior (the horse) the spans include `stageii.callable_prior` (its rows
+and Jacobian by vmap(jacfwd), and their products).
 
 Stage i (`--problem stagei`): one solve of chip_smoke.py's phase-6c
 problem after a warm-up, untraced and traced: the device time under the
 profiler ranges of the Jacobian (`gn.jacfwd`), the normal equations
 (`gn.normal_equations`), the Cholesky direction (`gn.cholesky`) and the
-freeze (`stagei.freeze`), the kernel table, the idle share, host syncs,
+freeze (`stagei.freeze`), the kernel table, the busy share, host syncs,
 iterations and peak memory, to chiprun_out/profile_stagei.txt.
 
 A/B: one worker process per checkout (this one is A, OTHER_CHECKOUT is B),
@@ -156,29 +159,15 @@ def profile(frames, problem, fold):
         traced, _ = _timed(solve)
     by_frames = sorted(kernels.COUNTS.frames.items(),
                     key=lambda kv: (kv[0][0], -kv[0][1]))
-    # kernel rows only: an aten op's row repeats its kernels' device time
-    from moshpp_torch.pipeline.stageii import CALLABLE_PRIOR_RANGE
-    # (a profiler range may also show as a device-side annotation row)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.key != CALLABLE_PRIOR_RANGE]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in rows) / 1e3     # ms
+    from moshpp_torch.utils.spans import SPANS
+    rows, busy = _kernel_rows(prof.key_averages(), SPANS)
     head = (f"wall (untraced) {wall * 1e3:.1f} ms, wall (traced) "
-            f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms (idle share "
-            f"of the untraced wall {max(0.0, 1 - busy / (wall * 1e3)):.3f}), "
-            f"peak device memory {peak:.2f} GiB, F={frames}, {problem} problem"
+            f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms "
+            f"{_busy_share(busy, traced)}, peak device memory {peak:.2f} "
+            f"GiB, F={frames}, {problem} problem"
             f"{', folded weights' if fold else ''}")
-    ranges = [e for e in prof.key_averages()
-              if e.key == CALLABLE_PRIOR_RANGE
-              and e.device_type == torch.autograd.DeviceType.CPU]
-    if ranges:
-        prior_ms = sum(e.device_time_total for e in ranges) / 1e3
-        head += (f"; callable prior ({CALLABLE_PRIOR_RANGE}, "
-                 f"{sum(e.count for e in ranges)} calls) {prior_ms:.1f} ms "
-                 f"device, {100 * prior_ms / busy:.1f} % of the device busy "
-                 f"time")
-    lines = [head, card] + [
+    spans = _range_lines(prof, SPANS, busy)
+    lines = [head, card, "program spans:"] + spans + [
         f"{e.self_device_time_total / 1e3:10.2f} ms {e.count:6d}  {e.key[:120]}"
         for e in rows] + ["launches of the traced solve by frame count:"] + [
         f"{n:6d} x F={F:<6d} {name}" for (name, F), n in by_frames] + (
@@ -189,7 +178,8 @@ def profile(frames, problem, fold):
             else f"profile_{problem}") + ("_fold" if fold else "") + ".txt"
     with open(os.path.join(out, name), "w") as f:
         f.write("\n".join(lines) + "\n")
-    print("\n".join(lines[:30] + lines[len(rows) + 2:]))
+    print("\n".join(lines[:len(spans) + 30]
+                    + lines[len(spans) + len(rows) + 3:]))
 
 
 def profile_stagei():
@@ -220,25 +210,14 @@ def profile_stagei():
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         traced, res_t = _timed(solve)
+    from moshpp_torch.utils.spans import SPANS
     names = (JACOBIAN_RANGE, NORMAL_RANGE, CHOLESKY_RANGE, FREEZE_RANGE)
     events = prof.key_averages()
-    rows = [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.key not in names]
-    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy = sum(e.self_device_time_total for e in rows) / 1e3     # ms
-    ranges = []
-    for name in names:
-        ev = [e for e in events if e.key == name
-              and e.device_type == torch.autograd.DeviceType.CPU]
-        dev_ms = sum(e.device_time_total for e in ev) / 1e3
-        cpu_ms = sum(e.cpu_time_total for e in ev) / 1e3
-        ranges.append(f"  {name}: {sum(e.count for e in ev)} calls, "
-                      f"{dev_ms:.1f} ms device ({100 * dev_ms / busy:.1f} % "
-                      f"of busy), {cpu_ms:.1f} ms host")
+    rows, busy = _kernel_rows(events, SPANS)
+    ranges = _range_lines(prof, names, busy)
     head = (f"stage i: wall (untraced) {wall * 1e3:.1f} ms, wall (traced) "
-            f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms (idle share "
-            f"of the untraced wall {max(0.0, 1 - busy / (wall * 1e3)):.3f}), "
+            f"{traced * 1e3:.1f} ms, device busy {busy:.1f} ms "
+            f"{_busy_share(busy, traced)}, "
             f"peak device memory {peak:.2f} GiB, host syncs {res.host_syncs}"
             f", iterations {res.iterations} (traced {res_t.iterations}), "
             f"{cs.STAGEI_FRAMES} frames, {cs.MARKERS} markers")
@@ -250,6 +229,65 @@ def profile_stagei():
     with open(os.path.join(out, "profile_stagei.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines[:40]))
+
+
+def _kernel_rows(events, ranges):
+    """(the device rows of `key_averages()` that are kernels, copies and
+    fills, by self device time; their total in ms). An aten op's row
+    repeats its kernels' device time, and a profiler range may also show
+    as a device-side annotation row: both are left out."""
+    import torch
+    rows = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in ranges]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return rows, sum(e.self_device_time_total for e in rows) / 1e3
+
+
+def _busy_share(busy_ms, traced_s):
+    """The traced solve's device time over its own traced wall."""
+    return f"(busy share of the traced wall {busy_ms / (traced_s * 1e3):.3f})"
+
+
+def _range_lines(prof, names, busy_ms):
+    """A line for each profiler range of `names` the profile saw: its
+    calls, the device time of the work launched inside it and its host
+    time. A kernel, copy or fill counts under every range open when its
+    launch ran on the host (the runtime call of the same correlation id):
+    `key_averages()` leaves out the kernels launched through ctypes, the
+    hand-written ones."""
+    import bisect
+    from torch.autograd import DeviceType
+    dev, launch_at, ranges = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        start, end = e.start_ns(), e.start_ns() + e.duration_ns()
+        if e.name() in names:
+            if e.device_type() == DeviceType.CPU:
+                ranges.append((e.name(), start, end))
+        elif e.device_type() == DeviceType.CUDA:
+            dev[e.correlation_id()] = dev.get(e.correlation_id(), 0) + (
+                end - start)
+        elif e.name().startswith(("cuda", "cu")) and e.correlation_id():
+            launch_at[e.correlation_id()] = start
+    launches = sorted((t, dev[c]) for c, t in launch_at.items() if c in dev)
+    times = [t for t, _ in launches]
+    cum = [0]
+    for _, ns in launches:
+        cum.append(cum[-1] + ns)
+    by = {}
+    for name, start, end in ranges:
+        i, j = bisect.bisect_left(times, start), bisect.bisect_right(times,
+                                                                      end)
+        calls, ns, host = by.get(name, (0, 0, 0))
+        by[name] = (calls + 1, ns + cum[j] - cum[i], host + end - start)
+    lines = []
+    for name in names:
+        if name in by:
+            calls, ns, host = by[name]
+            lines.append(f"  {name}: {calls} calls, {ns / 1e6:.1f} ms device "
+                         f"({100 * ns / 1e6 / busy_ms:.1f} % of busy), "
+                         f"{host / 1e6:.1f} ms host")
+    return lines
 
 
 def _fk_buckets(cs, bp, by_frames, small=513):
