@@ -59,7 +59,10 @@ class Counts:
     - ("gn.active", K): not launches but a sum of frames: the frames still
       active in those iterations. Summed over K it is the frame-iterations,
       the solves' `iterations` summed; sum K x ("gn.step", K) is the rows
-      computed.
+      computed;
+    - ("gn.graph", K): those iterations that ran as a CUDA graph's replay
+      (`solver/graphs.py`). A replay runs no wrapper: it adds the counts
+      its capture recorded.
     """
     launches: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
@@ -73,9 +76,41 @@ class Counts:
         self.plain_cuda.clear()
         self.frames.clear()
 
+    def _fields(self):
+        return self.launches, self.plain_cuda, self.frames
+
+    def copy(self) -> "Counts":
+        return Counts(*[collections.Counter(c) for c in self._fields()])
+
+    def since(self, before: "Counts") -> "Counts":
+        """What was counted after `before`, a copy of these counts."""
+        return Counts(*[now - then for now, then in
+                        zip(self._fields(), before._fields())])
+
+    def add(self, other: "Counts", sign: int = 1) -> None:
+        """Add `other` (subtract it with sign -1); a count that reaches 0
+        is dropped, as if never counted."""
+        for mine, theirs in zip(self._fields(), other._fields()):
+            for key, n in theirs.items():
+                mine[key] += sign * n
+                if not mine[key]:
+                    del mine[key]
+
 
 COUNTS = Counts()
 _LOCK = threading.Lock()
+
+
+def snapshot_counts() -> Counts:
+    """A copy of COUNTS."""
+    with _LOCK:
+        return COUNTS.copy()
+
+
+def add_counts(delta: Counts, sign: int = 1) -> None:
+    """Add `delta` to COUNTS (subtract it with sign -1)."""
+    with _LOCK:
+        COUNTS.add(delta, sign)
 
 
 def note_plain(name: str, t: torch.Tensor) -> None:

@@ -93,6 +93,7 @@ from moshpp_torch.priors.gmm import (MaxMixturePrior, gmm_prior_residual,
 from moshpp_torch.solver.gauss_newton import (JAC_PRECISIONS, DoglegOptions,
                                               GNSystem, batched_system_solve,
                                               check_choice, fp32_matmul)
+from moshpp_torch.solver.graphs import IterationGraphs
 from moshpp_torch.utils import spans
 from moshpp_torch.utils.spans import span, spanned
 
@@ -796,9 +797,11 @@ def mosh_stageii_solve(prob: StageIIProblem,
         return _solve_chunked(prob, opts, markers_obs, mask, prior,
                               model_type, device, return_report, on_phase,
                               mesh)
-    with fp32_matmul():
+    # the dogleg iterations' CUDA graphs of this call, shared by its phases
+    # and dropped when it returns
+    with fp32_matmul(), IterationGraphs() as graphs:
         return _solve(prob, opts, markers_obs, mask, prior, model_type,
-                      device, return_report, on_phase, mesh)
+                      device, return_report, on_phase, mesh, graphs)
 
 
 def _check_mesh(mesh) -> None:
@@ -990,7 +993,7 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
 
 
 def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
-           return_report=False, on_phase=None, mesh=None):
+           return_report=False, on_phase=None, mesh=None, graphs=None):
     model = prob.sub_model
     obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=device)
     maskf = torch.as_tensor(mask, device=device).to(torch.float32)
@@ -1057,7 +1060,8 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
             else:
                 r = batched_system_solve(system, x, aux, dl, param_mask=pmask,
                                          e_3=e3,
-                                         compact_buckets=opts.compact_buckets)
+                                         compact_buckets=opts.compact_buckets,
+                                         _graphs=graphs)
                 xs, its = r.x, r.iterations
                 syncs += r.host_syncs
             if return_report:

@@ -13,6 +13,7 @@ max-mixture GMM over a 31-joint subset of its pose.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import pickle
 
 import numpy as np
@@ -58,10 +59,18 @@ def load_horse_prior(fname: str, disable_tail_mouth_ear: bool = True,
 _HORSE_ANGLE_IDS = np.array([6, 7, 8, 11, 12, 13, 20, 21, 22, 25, 26, 27]) - 3
 
 
+@functools.lru_cache(maxsize=None)
+def _horse_angle_ids(device: torch.device) -> torch.Tensor:
+    """The leg-bend dofs' indices on `device`, copied there once: a copy
+    from the host inside a stage-ii iteration would break its CUDA graph's
+    capture."""
+    return torch.as_tensor(_HORSE_ANGLE_IDS, device=device)
+
+
 def horse_joint_angle_residual(pose_body: torch.Tensor) -> torch.Tensor:
     """exp(angle)^2 on the 12 leg-bend dofs (horse_body_prior.py:67-69),
     pose_body (..., 81) -> (..., 12)."""
-    ids = torch.as_tensor(_HORSE_ANGLE_IDS, device=pose_body.device)
+    ids = _horse_angle_ids(pose_body.device)
     return torch.exp(torch.index_select(pose_body, -1, ids)) ** 2
 
 

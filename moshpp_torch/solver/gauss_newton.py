@@ -14,6 +14,11 @@ stable argsort of the done flags gathers the stragglers into an N/b bucket,
 which finishes alone; the results are scattered back.
 `batched_system_solve_traced` runs the plain loop for exactly `maxiter`
 iterations with no host read and records each iteration.
+
+Handed an `IterationGraphs` (`solver/graphs.py`, the stage-ii schedule's
+private `_graphs`), a CUDA solve whose direction is the PCG kernel
+replays each iteration as a CUDA graph, one a batch shape: the same
+kernels on the same inputs, one launch and one read an iteration.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from moshpp_torch import kernels
+from moshpp_torch.solver.graphs import IterationGraphs
 from moshpp_torch.utils import spans
 from moshpp_torch.utils.spans import span, spanned
 
@@ -264,6 +270,18 @@ def _step(system: GNSystem, opts: DoglegOptions, e_3, s: _State, aux,
                                     opts, e_3)
 
 
+def _iterate(system: GNSystem, opts: DoglegOptions, e_3, s: _State, aux,
+             mask) -> _State:
+    """One dogleg iteration and the iteration limit's done flags."""
+    s = _step(system, opts, e_3, s, aux, mask)
+    return s._replace(done=s.done | (s.it >= opts.maxiter))
+
+
+def _active_count(s: _State, maxiter: int) -> torch.Tensor:
+    """The frames still iterating, a device scalar."""
+    return ((~s.done) & (s.it < maxiter)).sum()
+
+
 def _init_state(x0, f0, opts: DoglegOptions) -> _State:
     N = x0.shape[0]
     dev = x0.device
@@ -297,7 +315,8 @@ def batched_system_solve(system: GNSystem,
                          options: DoglegOptions = DoglegOptions(),
                          param_mask: Optional[torch.Tensor] = None,
                          e_3: Optional[float] = None,
-                         compact_buckets: Tuple[int, ...] = (4, 16)
+                         compact_buckets: Tuple[int, ...] = (4, 16),
+                         *, _graphs: Optional[IterationGraphs] = None
                          ) -> SolveResult:
     """Batched dogleg with straggler compaction.
 
@@ -310,27 +329,46 @@ def batched_system_solve(system: GNSystem,
     or a compaction bucket): their sums are the frame-iterations (the
     final `iterations` summed) and the rows computed. Both counts are on
     the host already: no sync, no launch.
+
+    `_graphs` (private: the stage-ii schedule's) replays the iterations as
+    CUDA graphs where x0 and `aux` are on CUDA and the direction is the
+    PCG kernel; those iterations also count one at ("gn.graph", K). The
+    Cholesky route runs eagerly: cuSOLVER's batched factorisation is not
+    known to be capturable.
     """
     opts = options
     e_3 = opts.e_3 if e_3 is None else e_3
     N = x0.shape[0]
     mask = _full_mask(x0, param_mask)
     syncs = 0
+    graphs = _graphs if (_graphs is not None and opts.linear_solver == "pcg"
+                         and _graphs.engages((x0,), aux)) else None
+
+    def iterate(s, aux_s, mask_s, e3):
+        return _iterate(system, opts, e3, s, aux_s, mask_s)
+
+    def active(s):
+        return _active_count(s, opts.maxiter)
 
     def run_stage(s: _State, aux_s, mask_s, min_active: int) -> _State:
         nonlocal syncs
         batch = s.x.shape[0]
+        stage = None if graphs is None else graphs.stage(
+            (system, opts), iterate, active, s, aux_s, mask_s, e_3)
+        count = None    # the next active count, where a replay wrote it
         while True:
             with span(spans.ACTIVE_READ):
-                n_active = int(((~s.done) & (s.it < opts.maxiter)).sum())
+                n_active = int(active(s) if count is None else count)
             syncs += 1
             if n_active == 0 or (min_active > 0 and n_active <= min_active):
-                return s
+                return s if stage is None else stage.finish(s)
             kernels.count_frames("gn.step", batch)
             kernels.count_frames("gn.active", batch, n_active)
             with span(spans.STEP):
-                s = _step(system, opts, e_3, s, aux_s, mask_s)
-                s = s._replace(done=s.done | (s.it >= opts.maxiter))
+                if stage is None:
+                    s = iterate(s, aux_s, mask_s, e_3)
+                else:
+                    s, count = stage.step(s)
 
     s = _init_state(x0, system.cost_fn(x0, aux), opts)
     buckets = [N // b for b in compact_buckets if N // b >= 8]
@@ -405,8 +443,7 @@ def batched_system_solve_traced(system: GNSystem,
         s = _init_state(x0, system.cost_fn(x0, aux), opts)
         for i in range(T):
             x_prev, done_prev = s.x, s.done
-            s = _step(system, opts, e_3, s, aux, mask)
-            s = s._replace(done=s.done | (s.it >= opts.maxiter))
+            s = _iterate(system, opts, e_3, s, aux, mask)
             # an accepted step moves x (pred ~ 0 forces rho ~ 0, a reject),
             # so a moved x is the accept decision, as in the JAX package
             trace["f"][i] = s.f

@@ -24,7 +24,11 @@ The stage-ii tree (one host thread; nesting is the parent link; one
                              end, where they are read)
         gn.solve             batched_system_solve (stage i's solves too)
           gn.active_read     the read of the active count: the host sync
-          gn.step            one dogleg iteration and its done update
+          gn.step            one dogleg iteration and its done update; an
+                             iteration replayed as a CUDA graph (the
+                             counter ("gn.graph", K)) opens none of the
+                             spans below: they open only on an iteration
+                             run eagerly or captured
             stageii.system   the system's assembly
               stageii.data_rows   marker rows, Jacobian and weighting
               stageii.normal_eq   f, g and B from the data rows
