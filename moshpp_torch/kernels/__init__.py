@@ -62,7 +62,10 @@ class Counts:
       computed;
     - ("gn.graph", K): those iterations that ran as a CUDA graph's replay
       (`solver/graphs.py`). A replay runs no wrapper: it adds the counts
-      its capture recorded.
+      its capture recorded;
+    - ("gn.capture", K): graphs captured, one for each run of replayed
+      iterations that captured its graph and zero for one that found it
+      made, so that the key shows where nothing was captured.
     """
     launches: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)

@@ -31,7 +31,10 @@ kernel (`marker_resid_and_wjac`); the normal equations B = JdᵀJd as one
 float32 `torch.bmm` with TF32 off, the prior and regularizers as analytic
 blocks. The direction is the fused dogleg kernel
 (`solver/pcg.py`) in PCG phases and a batched Cholesky otherwise; on CUDA
-the polish runs deep PCG through the kernel.
+the polish runs deep PCG through the kernel, and a PCG phase replays each
+iteration as a CUDA graph (`solver/graphs.py`). The system and its graphs
+are kept with the problem (`_solver`), so that a later solve of a capture
+length already met replays every iteration.
 
 Telemetry: `return_report=True` adds a `StageIIReport` (each phase's mean
 per-term energies before and after it, and its mean iterations), computed
@@ -62,10 +65,12 @@ assembles one (f, g, B) at the rigid init, shard by shard on a mesh.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import hashlib
 import os
+import threading
 import types
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
@@ -182,6 +187,11 @@ class StageIIProblem:
     coeffs: torch.Tensor       # (M, 3) frozen latent-marker coefficients
     betas: torch.Tensor        # (B,) frozen subject shape
     tables: MarkerJacTables    # marker-kernel tables
+    # the stage-ii systems and their dogleg graphs, kept for later solves
+    # (`_solver`); not an input, and made anew for a copy
+    _solvers: collections.OrderedDict = dataclasses.field(
+        default_factory=collections.OrderedDict, init=False, repr=False,
+        compare=False)
 
     @property
     def indices(self) -> MarkerFrameIndices:
@@ -797,11 +807,64 @@ def mosh_stageii_solve(prob: StageIIProblem,
         return _solve_chunked(prob, opts, markers_obs, mask, prior,
                               model_type, device, return_report, on_phase,
                               mesh)
-    # the dogleg iterations' CUDA graphs of this call, shared by its phases
-    # and dropped when it returns
-    with fp32_matmul(), IterationGraphs() as graphs:
+    with fp32_matmul():
+        # the system and the dogleg iterations' CUDA graphs, kept with the
+        # problem: shared by this call's phases and by later calls; built
+        # under the solve's float32 products, as they are kept
+        system, graphs = _solver(prob, opts, prior, model_type, device)
         return _solve(prob, opts, markers_obs, mask, prior, model_type,
-                      device, return_report, on_phase, mesh, graphs)
+                      device, system, return_report, on_phase, mesh, graphs)
+
+
+class _Same:
+    """A dict key that holds its object and compares it by identity: the
+    object lives as long as the key, so its id names it alone."""
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __hash__(self) -> int:
+        return id(self.obj)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, _Same) and other.obj is self.obj
+
+
+# the (prior, options, model type, device, thread) entries a problem keeps
+# at most, the least recently used dropped first: a sweep of options on one
+# subject would otherwise keep a system and its graphs for every value
+MAX_SOLVERS = 8
+_SOLVERS_LOCK = threading.Lock()
+
+
+def _solver(prob: StageIIProblem, opts: StageIIOptions, prior,
+            model_type: str, device: torch.device):
+    """(system, graphs) of a solve: the stage-ii system and the
+    `IterationGraphs` captured against it, kept in a private slot of the
+    problem (`StageIIProblem._solvers`), and so dropped with it, one entry
+    a prior (by identity), options value, model type, device and host
+    thread (the graphs' capture stream and pool are the thread's,
+    `graphs.capturer`), at most `MAX_SOLVERS`. The graphs read the system's
+    tensors at the addresses captured, so the two live and go together.
+    Call it under `fp32_matmul`: an entry is built once and kept."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    weights = tuple(sorted((opts.weights or {}).items()))
+    key = (_Same(prior), dataclasses.replace(opts, weights=None), weights,
+           model_type, device, _Same(threading.current_thread()))
+    held = prob._solvers
+    with _SOLVERS_LOCK:
+        entry = held.get(key)
+        if entry is None:
+            entry = held[key] = (make_stageii_system(prob, opts, prior,
+                                                     model_type),
+                                 IterationGraphs())
+            if len(held) > MAX_SOLVERS:
+                held.popitem(last=False)
+        else:
+            held.move_to_end(key)
+        return entry
 
 
 def _check_mesh(mesh) -> None:
@@ -993,7 +1056,8 @@ def _solve_chunked(prob, opts, markers_obs, mask, prior, model_type,
 
 
 def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
-           return_report=False, on_phase=None, mesh=None, graphs=None):
+           system, return_report=False, on_phase=None, mesh=None,
+           graphs=None):
     model = prob.sub_model
     obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=device)
     maskf = torch.as_tensor(mask, device=device).to(torch.float32)
@@ -1002,7 +1066,6 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
     # DMPL dims carry extrapolation anchors; expressions have none
     n_anchored = _num_extra(opts) if opts.optimize_dynamics else 0
     wt = opts.wt
-    system = make_stageii_system(prob, opts, prior, model_type)
 
     dl_opts = DoglegOptions(maxiter=opts.maxiter, delta_0=0.5,
                             linear_solver=opts.linear_solver,

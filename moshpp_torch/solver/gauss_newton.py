@@ -16,9 +16,10 @@ which finishes alone; the results are scattered back.
 iterations with no host read and records each iteration.
 
 Handed an `IterationGraphs` (`solver/graphs.py`, the stage-ii schedule's
-private `_graphs`), a CUDA solve whose direction is the PCG kernel
-replays each iteration as a CUDA graph, one a batch shape: the same
-kernels on the same inputs, one launch and one read an iteration.
+private `_graphs`, kept with the problem), a CUDA solve whose direction
+is the PCG kernel replays each iteration as a CUDA graph, one a batch
+shape: the same kernels on the same inputs, one launch and one read an
+iteration.
 """
 
 from __future__ import annotations
@@ -332,7 +333,9 @@ def batched_system_solve(system: GNSystem,
 
     `_graphs` (private: the stage-ii schedule's) replays the iterations as
     CUDA graphs where x0 and `aux` are on CUDA and the direction is the
-    PCG kernel; those iterations also count one at ("gn.graph", K). The
+    PCG kernel; those iterations also count one at ("gn.graph", K), and
+    each run of them adds one at ("gn.capture", K) where it captured its
+    graph, zero where it found the graph made. The
     Cholesky route runs eagerly: cuSOLVER's batched factorisation is not
     known to be capturable.
     """

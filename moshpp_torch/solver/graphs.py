@@ -28,25 +28,35 @@ A capture runs nothing, and a replay runs no kernel wrapper, so the
 launch counters (`kernels.COUNTS`) are kept true by hand: the counts a
 capture records are taken back out and added once for every replay
 (`CountedGraph`). That bookkeeping assumes no other thread counts while a
-graph is captured: a solve on a mesh gets no graphs.
+graph is captured: a solve on a mesh gets no graphs. Each stage that
+replays adds one at ("gn.capture", K) where it captured its graph and
+zero where it found the graph made, so that the key shows in a run that
+captured nothing.
 
-The owner (a stage-ii solve) makes one `IterationGraphs` and clears it
-when it is done: the graphs and the buffers go with it. The capture stream
-and the graphs' memory pool outlive them: one of each a device and host
-thread (`capturer`), so that the next owner's captures take the pool's
-free blocks rather than new device memory. The pool holds about one
-iteration's scratch: 1.8 GiB for SMPL+H at F=4,096, 7.2 GiB at F=16,384.
-A pool an owner would cudaMalloc that much every solve, and the freed
-pools stay reserved until the allocator runs out: a pool a solve ran an
-80 GB card out of memory after nine solves at F=16,384. Like the caching
-allocator's own cache, the pool's blocks stay reserved and are not
-counted as allocated (`max_memory_allocated` does not see them), so the
-device's footprint is the default pool's and this one's, about twice the
-eager loop's; they go when the thread ends.
+The owner keeps one `IterationGraphs` as long as the system its graphs
+were captured against, whose tensors they read: the stage-ii schedule
+keeps it with the subject's `StageIIProblem` (`stageii._solver`), one a
+prior, options value, model type, device and host thread, so that the
+solves of captures of one length after the first replay every
+iteration. It holds at most `max_keys` keys and drops the least recently
+used, with the buffers no graph left reads; the graphs and the buffers go
+when it is cleared or dropped. The capture stream and the graphs' memory
+pool outlive it: one of each a device and host thread (`capturer`), so
+that every owner's captures take the pool's free blocks rather than new
+device memory. The pool holds about one iteration's scratch: 1.8 GiB for
+SMPL+H at F=4,096, 7.2 GiB at F=16,384. A pool for each owner would
+cudaMalloc that much for every owner made, and the freed pools stay
+reserved until the allocator runs out: a pool a solve ran an 80 GB card
+out of memory after nine solves at F=16,384. Like the caching allocator's own cache, the
+pool's blocks stay reserved and are not counted as allocated
+(`max_memory_allocated` does not see them), so the device's footprint is
+the default pool's and this one's, about twice the eager loop's; they go
+when the thread ends and no graph captured into them is left.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 from typing import Callable, Optional
@@ -57,6 +67,8 @@ from moshpp_torch import kernels
 
 # the counter of iterations run by replay: ("gn.graph", K)
 GRAPH_COUNTER = "gn.graph"
+# the counter of graphs captured: ("gn.capture", K)
+CAPTURE_COUNTER = "gn.capture"
 
 
 class CountedGraph:
@@ -68,6 +80,7 @@ class CountedGraph:
     def __init__(self, graph):
         self.graph = graph
         self.counts: Optional[kernels.Counts] = None
+        self.buffers = None    # the static buffers it reads, where any
 
     def capture(self, region: Callable[[], None], capturing) -> None:
         """Call `region` inside the context `capturing`, which records it
@@ -183,28 +196,52 @@ class _Buffers:
 
 
 class IterationGraphs:
-    """The graphs of one owner's dogleg iterations, by key (module
-    docstring). Use as a context manager, or call `clear`."""
+    """The graphs of one owner's dogleg iterations, by key, at most
+    `max_keys` of them (module docstring)."""
+
+    # the keys held at most, the least recently used dropped first
+    max_keys = 64
 
     def __init__(self):
-        # key -> CountedGraph, or None once met and run eagerly
-        self._graphs = {}
+        # key -> CountedGraph, or None once met and run eagerly; the least
+        # recently used first
+        self._graphs = collections.OrderedDict()
         self._buffers = {}     # signature -> [_Buffers], capacity ascending
 
     def __len__(self) -> int:
         """The keys met."""
         return len(self._graphs)
 
-    def __enter__(self) -> "IterationGraphs":
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self.clear()
-
     def clear(self) -> None:
         """Drop the graphs and the buffers."""
         self._graphs.clear()
         self._buffers.clear()
+
+    def _get(self, key):
+        """The graph of `key` (None where met and not captured), marked as
+        used last; `_UNMET` where the key is not held."""
+        graph = self._graphs.get(key, _UNMET)
+        if graph is not _UNMET:
+            self._graphs.move_to_end(key)
+        return graph
+
+    def _put(self, key, graph) -> None:
+        """Hold `graph` under `key`, dropping the least recently used key
+        past `max_keys` and then the buffers that no graph left reads. A
+        set is only ever added above the largest of its signature, so the
+        set a held graph reads stays the least that fits its batch."""
+        self._graphs[key] = graph
+        self._graphs.move_to_end(key)
+        if len(self._graphs) <= self.max_keys:
+            return
+        self._graphs.popitem(last=False)
+        read = {id(g.buffers) for g in self._graphs.values() if g is not None}
+        for sig in list(self._buffers):
+            kept = [b for b in self._buffers[sig] if id(b) in read]
+            if kept:
+                self._buffers[sig] = kept
+            else:
+                del self._buffers[sig]
 
     def stage(self, ident, iterate: Callable, active: Callable, state,
               aux: dict, mask: torch.Tensor, e_3: float) -> "Stage":
@@ -238,12 +275,14 @@ class IterationGraphs:
         return all(torch.is_tensor(t) and t.is_cuda
                    for t in (*state, *aux.values()))
 
-    def _capture(self, key, region: Callable[[], None],
+    def _capture(self, key, region: Callable[[], None], buffers: _Buffers,
                  device) -> CountedGraph:
-        """Capture `region` under `key`."""
+        """Capture `region`, which reads and writes `buffers`, under
+        `key`."""
         graph = CountedGraph(self._new_graph())
         graph.capture(region, self._recording(graph.graph, device))
-        self._graphs[key] = graph
+        graph.buffers = buffers
+        self._put(key, graph)
         return graph
 
     def _new_graph(self):
@@ -273,14 +312,15 @@ class Stage:
         """One iteration: (the next state, the device scalar that holds the
         next active count, or None where the caller counts them)."""
         graphs = self.graphs
-        graph = graphs._graphs.get(self.key, _UNMET)
+        graph = graphs._get(self.key)
         if graph is _UNMET:
-            graphs._graphs[self.key] = None
+            graphs._put(self.key, None)
             return self.iterate(state, self.aux, self.mask, self.e_3), None
         if self.buffers is None:
             self._load(state)
+            kernels.count_frames(CAPTURE_COUNTER, self.K, int(graph is None))
         if graph is None:
-            graph = graphs._capture(self.key, self._region(),
+            graph = graphs._capture(self.key, self._region(), self.buffers,
                                     self.mask.device)
         graph.replay()
         kernels.count_frames(GRAPH_COUNTER, self.K)

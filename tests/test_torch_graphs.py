@@ -5,8 +5,13 @@ replays, on a stand-in graph; the static buffers' capacities; the whole
 flow of a stage (eager at a key met first, captured at the second
 iteration, replayed after, inputs loaded and the state copied out) under
 an emulated graph whose capture runs nothing and whose replay runs the
-recorded iteration, bit for bit against the eager loop; and a CPU
-`mosh_stageii_solve`, which engages no graph and drops its cache.
+recorded iteration, bit for bit against the eager loop; a CPU
+`mosh_stageii_solve`, which engages no graph; and the graphs kept with
+the problem under emulated graphs: a second capture of one length only
+replays, another prior, options value, length or thread gets graphs of
+its own, the cache goes with the problem, and the key cap drops the
+least recently used; and the kept system built with TF32 off whatever
+the caller set.
 
 On the card (`cuda` marker; this file imports no JAX, and its golden
 problem is built with the JAX package inside a fixture that only the CPU
@@ -21,13 +26,20 @@ compaction on, against the eager schedule, on every problem family the
 card runs: SMPL+H, the SMPL-X face, DMPL (the `<jac,ext>` route and the
 extra anchor's aux), the horse's callable prior, the dog's GMM over
 gathered dofs and the rigid object (D=6); and a chunked solve, and the
-same solve resumed from its checkpoints with one chunk missing.
+same solve resumed from its checkpoints with one chunk missing, the
+chunks sharing their graphs; two captures solved on one problem, the
+second only replayed; and TF32 turned on by the caller before a GMM
+problem's first solve, which changes neither that solve nor the next.
 """
 
 import collections
 import contextlib
+import dataclasses
+import gc
 import os
 import sys
+import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -40,6 +52,19 @@ from moshpp_torch import kernels  # noqa: E402
 from moshpp_torch.pipeline import stageii  # noqa: E402
 from moshpp_torch.solver import gauss_newton as gn  # noqa: E402
 from moshpp_torch.solver import graphs  # noqa: E402
+
+
+# the counters that only a solve with graphs adds
+GRAPH_KEYS = (graphs.GRAPH_COUNTER, graphs.CAPTURE_COUNTER)
+
+
+def _frames_without_graphs(frames):
+    return {k: n for k, n in frames.items() if k[0] not in GRAPH_KEYS}
+
+
+def _rows(frames, name):
+    """Sum of K x n over (name, K)."""
+    return sum(K * n for (k, K), n in frames.items() if k == name)
 
 
 class StandIn:
@@ -154,8 +179,8 @@ class EmulatedGraphs(graphs.IterationGraphs):
         for t, s in zip(held, saved):
             t.copy_(s)
 
-    def _capture(self, key, region, device):
-        g = super()._capture(key, region, device)
+    def _capture(self, key, region, *args):
+        g = super()._capture(key, region, *args)
         g.graph.region = region
         self.captures += 1
         return g
@@ -195,11 +220,12 @@ def test_emulated_graphs_match_the_eager_loop_bit_for_bit():
     eager, _ = runs["eager"]
     frames, cache = runs["graphs"]
     replayed = {K: n for (k, K), n in frames.items() if k == "gn.graph"}
-    rest = {k: n for k, n in frames.items() if k[0] != "gn.graph"}
-    assert rest == eager
+    captured = {K: n for (k, K), n in frames.items() if k == "gn.capture"}
+    assert _frames_without_graphs(frames) == eager
     steps = {K: n for (k, K), n in eager.items() if k == "gn.step"}
     # one key a batch; each met first eagerly, captured once
     assert len(cache) == len(steps) == cache.captures
+    assert sum(captured.values()) == cache.captures
     assert set(replayed) <= set(steps)
     for K, n in steps.items():          # all but the first at each key
         assert replayed.get(K, 0) == n - 1, K
@@ -225,6 +251,18 @@ def golden():
                                                                 (reps, 1))
 
 
+def _fresh(golden):
+    """`golden` with a problem of its own, which holds no graphs yet."""
+    return (dataclasses.replace(golden[0]),) + tuple(golden[1:])
+
+
+def _other_capture(golden):
+    """A second capture of the golden frames' length: other noise."""
+    obs = golden[3] + np.random.default_rng(1).normal(
+        size=golden[3].shape).astype(np.float32) * 2e-3
+    return obs.astype(np.float32)
+
+
 def _recording_solves(monkeypatch, drop_cache=False):
     """Patch the schedule's solver to record each call's cache (and, with
     `drop_cache`, to hand it none): the list of caches."""
@@ -239,12 +277,27 @@ def _recording_solves(monkeypatch, drop_cache=False):
     return seen
 
 
-def _solve_counted(golden, opts=None):
-    prob, opts0, prior, obs, mask = golden
+def _emulate(monkeypatch):
+    """Make the schedule's caches `EmulatedGraphs`: the list of those
+    made."""
+    made = []
+
+    def emulated():
+        made.append(EmulatedGraphs())
+        return made[-1]
+
+    monkeypatch.setattr(stageii, "IterationGraphs", emulated)
+    return made
+
+
+def _solve_counted(golden, **change):
+    """One CPU solve of `golden` with the fields named in `change` (prob,
+    opts, prior, obs, mask) replaced: (result, the counters' frames)."""
+    g = dict(zip(("prob", "opts", "prior", "obs", "mask"), golden), **change)
     kernels.COUNTS.reset()
-    res = stageii.mosh_stageii_solve(prob, opts or opts0, obs, mask,
-                                     prior=prior, model_type="smplh",
-                                     device="cpu")
+    res = stageii.mosh_stageii_solve(g["prob"], g["opts"], g["obs"],
+                                     g["mask"], prior=g["prior"],
+                                     model_type="smplh", device="cpu")
     frames = dict(kernels.COUNTS.frames)
     kernels.COUNTS.reset()
     return res, frames
@@ -260,19 +313,30 @@ def _assert_same(a, b, syncs=True):
         assert x.dtype == y.dtype and torch.equal(x, y), f
 
 
+def _captures(frames) -> int:
+    return sum(n for (k, _), n in frames.items()
+               if k == graphs.CAPTURE_COUNTER)
+
+
 def test_cpu_solve_engages_no_graph_and_drops_its_cache(golden, monkeypatch):
+    """A CPU solve engages no graph; its cache, empty, is kept with the
+    problem for the next solve and goes when the problem goes."""
+    g = _fresh(golden)
     seen = _recording_solves(monkeypatch)
-    res, frames = _solve_counted(golden)
-    caches = set(map(id, seen))
-    # one cache for the call, shared by its eight phases, empty at the end
-    assert len(seen) == 8 and len(caches) == 1 and seen[0] is not None
+    res, frames = _solve_counted(g)
+    # one cache for the call, shared by its eight phases, empty
+    assert len(seen) == 8 and len(set(map(id, seen))) == 1
+    assert seen[0] is not None
     assert len(seen[0]) == 0 and not seen[0]._buffers
-    assert not any(k == "gn.graph" for k, _ in frames)
-    first = seen[0]
+    assert not any(k in GRAPH_KEYS for k, _ in frames)
+    first = weakref.ref(seen[0])
     seen.clear()
-    again, _ = _solve_counted(golden)
-    assert seen[0] is not first
+    again, _ = _solve_counted(g)
+    assert seen[0] is first() and len(seen[0]) == 0
     _assert_same(res, again)
+    seen.clear()
+    del g
+    assert first() is None
     # and the same solve handed no cache at all
     monkeypatch.undo()
     _recording_solves(monkeypatch, drop_cache=True)
@@ -284,28 +348,196 @@ def test_cpu_solve_engages_no_graph_and_drops_its_cache(golden, monkeypatch):
 def test_emulated_graphs_in_a_whole_solve(golden, monkeypatch):
     """The schedule's phases, the polish's PCG among them, through
     emulated graphs: bit for bit the eager solve, the same counters but
-    ("gn.graph", K), and the cache empty when the call returns."""
-    import dataclasses
+    ("gn.graph", K) and ("gn.capture", K); the graphs and their buffers
+    kept with the problem when the call returns, and gone with it."""
     opts = dataclasses.replace(golden[1], polish_solver="pcg")
-    made = []
-
-    def emulated():
-        made.append(EmulatedGraphs())
-        return made[-1]
-
+    g = _fresh(golden)
     _recording_solves(monkeypatch, drop_cache=True)
-    eager, eager_frames = _solve_counted(golden, opts)
+    eager, eager_frames = _solve_counted(g, opts=opts)
     monkeypatch.undo()
-    monkeypatch.setattr(stageii, "IterationGraphs", emulated)
-    res, frames = _solve_counted(golden, opts)
+    made = _emulate(monkeypatch)
+    g = _fresh(golden)
+    res, frames = _solve_counted(g, opts=opts)
     _assert_same(eager, res)
-    replayed = sum(K * n for (k, K), n in frames.items() if k == "gn.graph")
-    rows = sum(K * n for (k, K), n in frames.items() if k == "gn.step")
-    assert {k: n for k, n in frames.items() if k[0] != "gn.graph"} \
-        == eager_frames
+    replayed = _rows(frames, "gn.graph")
+    rows = _rows(frames, "gn.step")
+    assert _frames_without_graphs(frames) == eager_frames
     assert 0.5 * rows < replayed < rows
     assert len(made) == 1 and made[0].captures > 0
-    assert len(made[0]) == 0 and not made[0]._buffers
+    assert _captures(frames) == made[0].captures
+    assert len(made[0]) >= made[0].captures and made[0]._buffers
+    assert [e[1] for e in g[0]._solvers.values()] == made
+    gone = weakref.ref(made.pop())
+    del g
+    gc.collect()        # an emulated graph's region refers to its cache
+    assert gone() is None
+
+
+def test_a_second_capture_on_one_problem_only_replays(golden, monkeypatch):
+    """Two captures of one length solved on one problem through emulated
+    graphs: each bit for bit its eager solve with the same counters; the
+    second captures nothing and runs no iteration eagerly."""
+    opts = dataclasses.replace(golden[1], polish_solver="pcg")
+    captures = (golden[3], _other_capture(golden))
+    g = _fresh(golden)
+    _recording_solves(monkeypatch, drop_cache=True)
+    eager = [_solve_counted(g, opts=opts, obs=o) for o in captures]
+    monkeypatch.undo()
+    made = _emulate(monkeypatch)
+    g = _fresh(golden)
+    runs = [_solve_counted(g, opts=opts, obs=o) for o in captures]
+    for (e, e_frames), (r, r_frames) in zip(eager, runs):
+        _assert_same(e, r)
+        assert _frames_without_graphs(r_frames) == e_frames
+    (_, first), (_, second) = runs
+    assert len(made) == 1 and _captures(first) == made[0].captures > 0
+    # the counter is there, at zero
+    assert any(k == graphs.CAPTURE_COUNTER for k, _ in second)
+    assert _captures(second) == 0
+    assert _rows(second, "gn.graph") == _rows(second, "gn.step") > 0
+
+
+@pytest.mark.parametrize("change", ["prior", "options", "equal_options",
+                                    "length", "thread"])
+def test_what_gets_graphs_of_its_own(golden, monkeypatch, change):
+    """A solve after a first on one problem: another prior (an equal copy),
+    another options value or another host thread gets a cache of its own;
+    an equal options value (a new object) shares the first's and replays
+    only; another length shares it and captures its own keys."""
+    made = _emulate(monkeypatch)
+    g = _fresh(golden)
+    first, _ = _solve_counted(g)
+    second = dict(prior=stageii._replicate(g[2], "cpu"),
+                  options=dict(opts=dataclasses.replace(g[1], cg_iters=20)),
+                  equal_options=dict(opts=dataclasses.replace(
+                      g[1], weights=dict(g[1].weights or {}))),
+                  length=dict(obs=g[3][:56], mask=g[4][:56]),
+                  thread={})[change]
+    if change == "prior":
+        assert second is not g[2]
+        second = dict(prior=second)
+    out = []
+    if change == "thread":
+        t = threading.Thread(target=lambda: out.append(_solve_counted(g)))
+        t.start()
+        t.join(timeout=600)
+        assert not t.is_alive()
+    else:
+        out.append(_solve_counted(g, **second))
+    res, frames = out[0]
+    own = change in ("prior", "options", "thread")
+    assert len(made) == (2 if own else 1)
+    assert len(g[0]._solvers) == len(made)
+    if change == "equal_options":
+        assert _captures(frames) == 0
+    else:
+        assert _captures(frames) > 0
+    if change in ("prior", "equal_options", "thread"):
+        _assert_same(first, res)
+
+
+def _toy_solve(system, cache, N, dl):
+    """A toy solve of N frames, no compaction: (result, counters'
+    frames)."""
+    t = torch.linspace(-2.0, 3.0, 3 * N).reshape(N, 3)
+    kernels.COUNTS.reset()
+    with gn.fp32_matmul():
+        res = gn.batched_system_solve(system, torch.zeros(N, 3), {"t": t},
+                                      dl, compact_buckets=(), _graphs=cache)
+    frames = dict(kernels.COUNTS.frames)
+    kernels.COUNTS.reset()
+    return res, frames
+
+
+def test_the_key_cap_drops_the_least_recently_used():
+    """At most `max_keys` keys: a new one drops the least recently used,
+    and the buffers no graph left reads; a key met again after it went is
+    run eagerly and captured anew; every solve bit for bit the eager
+    loop's."""
+    system = _toy_system()
+    dl = gn.DoglegOptions(maxiter=30, e_3=1e-6, delta_0=1.0,
+                          linear_solver="pcg", cg_iters=8)
+    cache = EmulatedGraphs()
+    cache.max_keys = 2
+
+    def solve(N):
+        res, frames = _toy_solve(system, cache, N, dl)
+        eager, eager_frames = _toy_solve(system, None, N, dl)
+        for f in ("x", "cost", "iterations", "converged"):
+            assert torch.equal(getattr(res, f), getattr(eager, f)), (N, f)
+        assert _frames_without_graphs(frames) == eager_frames
+        return frames
+
+    def held():
+        return [key[1] for key in cache._graphs]
+
+    def capacities():
+        return sorted(b.capacity for sets in cache._buffers.values()
+                      for b in sets)
+
+    for N in (16, 24, 32):
+        assert _captures(solve(N)) == 1
+    assert held() == [24, 32] and capacities() == [24, 32]
+    # 16 again: met anew, which drops 24 and its buffers; captured on the
+    # 32-frame buffers
+    frames = solve(16)
+    assert _captures(frames) == 1
+    assert frames[("gn.step", 16)] - frames[("gn.graph", 16)] == 1
+    assert held() == [32, 16] and capacities() == [32]
+    # 32 replays only and is used last: 24 drops 16, the least recent
+    frames = solve(32)
+    assert _captures(frames) == 0
+    assert frames[("gn.step", 32)] == frames[("gn.graph", 32)]
+    assert held() == [16, 32]
+    solve(24)
+    assert held() == [32, 24] and capacities() == [32]
+    assert cache.captures == 5
+
+
+@contextlib.contextmanager
+def _tf32_turned_on(how):
+    """TF32 turned on for the process the way a caller does (`how`), the
+    flags put back after: the flags as read inside."""
+    saved = _tf32_flags()
+    try:
+        if how == "allow_tf32":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+        else:
+            torch.set_float32_matmul_precision("high")
+        yield _tf32_flags()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _tf32_flags():
+    """(cuBLAS's, cuDNN's) TF32 flags."""
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+@pytest.mark.parametrize("how", ["allow_tf32", "matmul_precision"])
+def test_the_kept_system_is_built_with_tf32_off(golden, monkeypatch, how):
+    """A caller turns TF32 on before a problem's first solve: the system
+    the problem keeps for its later solves is built under the solve's
+    full-float32 products, and the caller's setting is back when the solve
+    returns."""
+    real = stageii.make_stageii_system
+    seen = []
+
+    def recording(*args, **kwargs):
+        seen.append(_tf32_flags())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(stageii, "make_stageii_system", recording)
+    g = _fresh(golden)
+    with _tf32_turned_on(how) as on:
+        assert on[0]
+        _solve_counted(g)
+        assert _tf32_flags() == on
+    assert seen == [(False, False)]
+    assert len(g[0]._solvers) == 1
 
 
 # ---- on the card --------------------------------------------------------
@@ -322,10 +554,6 @@ def _chip_problem(name, frames):
     sys.path.insert(0, REPO)
     import chip_smoke
     return getattr(chip_smoke, name)(frames, "cuda")
-
-
-def _frames_without_graphs(frames):
-    return {k: n for k, n in frames.items() if k[0] != "gn.graph"}
 
 
 @pytest.mark.cuda
@@ -367,13 +595,13 @@ def test_graphs_match_the_eager_loop_on_the_card(dev, problem, frames):
     assert len(cache) == 1
 
 
-def _card_solve(bp, opts, eager, monkeypatch):
+def _card_solve(bp, opts, eager, monkeypatch, obs=None):
     if eager:
         _recording_solves(monkeypatch, drop_cache=True)
     kernels.COUNTS.reset()
     res = stageii.mosh_stageii_solve(
-        bp["prob"], opts, bp["obs"], bp["mask"], prior=bp["prior"],
-        model_type=bp["model_type"], device="cuda")
+        bp["prob"], opts, bp["obs"] if obs is None else obs, bp["mask"],
+        prior=bp["prior"], model_type=bp["model_type"], device="cuda")
     torch.cuda.synchronize()
     counts = kernels.COUNTS.copy()
     kernels.COUNTS.reset()
@@ -383,14 +611,12 @@ def _card_solve(bp, opts, eager, monkeypatch):
 
 def _assert_replayed(counts, eager_counts):
     """The launches and counters of a solve with graphs equal the eager
-    solve's, but ("gn.graph", K); most rows replayed."""
+    solve's, but ("gn.graph", K) and ("gn.capture", K); most rows
+    replayed."""
     assert counts.launches == eager_counts.launches
     assert _frames_without_graphs(counts.frames) == dict(eager_counts.frames)
-    replayed = sum(K * n for (k, K), n in counts.frames.items()
-                   if k == "gn.graph")
-    rows = sum(K * n for (k, K), n in counts.frames.items()
-               if k == "gn.step")
-    assert replayed > 0.5 * rows
+    assert _rows(counts.frames, "gn.graph") > 0.5 * _rows(counts.frames,
+                                                          "gn.step")
 
 
 @pytest.mark.cuda
@@ -412,15 +638,62 @@ def test_whole_solve_matches_the_eager_schedule_on_the_card(
     _assert_replayed(cg, ce)
 
 
+def _eager_steps(frames) -> int:
+    """The iterations that ran eagerly: ("gn.step", K) less ("gn.graph",
+    K), summed over K."""
+    return sum(n - frames.get((graphs.GRAPH_COUNTER, K), 0)
+               for (k, K), n in frames.items() if k == "gn.step")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("problem,frames,recurs", [
+    ("bench_problem", 512, True), ("face_problem", 256, True),
+    # the reversed capture runs batch shapes the first did not capture
+    ("horse_problem", 256, False)])
+def test_a_second_capture_on_one_problem_only_replays_on_the_card(
+        dev, monkeypatch, problem, frames, recurs):
+    """Two captures of one length (the second the first run backwards)
+    solved on one problem, graphs against the eager schedule: each bit
+    for bit, with equal syncs, launches and counters. The second replays
+    every graph the first captured and captures none again: it runs
+    eagerly only the keys it meets first and captures only those the
+    first left uncaptured; where its keys recur it only replays."""
+    bp = _chip_problem(problem, frames)
+    captures = (bp["obs"], bp["obs"].flip(0).contiguous())
+    eager = [_card_solve(bp, bp["opts"], True, monkeypatch, obs=o)
+             for o in captures]
+    bp["prob"] = dataclasses.replace(bp["prob"])     # no graphs kept yet
+    res, c1 = _card_solve(bp, bp["opts"], False, monkeypatch, obs=captures[0])
+    (_, cache), = bp["prob"]._solvers.values()
+    kept = dict(cache._graphs)
+    res2, c2 = _card_solve(bp, bp["opts"], False, monkeypatch,
+                           obs=captures[1])
+    for (e, ce), (r, cr) in zip(eager, ((res, c1), (res2, c2))):
+        _assert_same(e, r)
+        _assert_replayed(cr, ce)
+    first, second = c1.frames, c2.frames
+    assert _captures(first) > 0
+    for key, graph in kept.items():
+        if graph is not None:
+            assert cache._graphs[key] is graph
+    new = [k for k in cache._graphs if k not in kept]
+    assert _eager_steps(second) == len(new)
+    assert _captures(second) == sum(
+        g is not None and kept.get(k) is None for k, g in cache._graphs.items())
+    if recurs:
+        assert _captures(second) == 0 and not new
+        assert _rows(second, "gn.graph") == _rows(second, "gn.step")
+
+
 @pytest.mark.cuda
 def test_chunked_and_resumed_solves_match_the_eager_schedule_on_the_card(
         dev, monkeypatch, tmp_path):
-    """A solve of 640 frames in three chunks of 256 (each chunk's inner
-    call makes its own graphs), graphs against the eager schedule: bit
-    for bit, equal syncs, launches and counters; then the same solve
-    resumed from its checkpoints with the middle chunk's removed, which
-    solves that chunk alone: bit for bit again."""
-    import dataclasses
+    """A solve of 640 frames in three chunks of 256, graphs against the
+    eager schedule: bit for bit, equal syncs, launches and counters, the
+    chunks sharing one problem's graphs (one eager iteration and at most
+    one capture a key over the three); then the same solve resumed from
+    its checkpoints with the middle chunk's removed, which solves that
+    chunk alone, replaying only: bit for bit again."""
     bp = _chip_problem("bench_problem", 640)
     opts = dataclasses.replace(bp["opts"], chunk_frames=256, chunk_halo=32)
     eager, ce = _card_solve(bp, opts, True, monkeypatch)
@@ -428,8 +701,47 @@ def test_chunked_and_resumed_solves_match_the_eager_schedule_on_the_card(
     res, cg = _card_solve(bp, kept, False, monkeypatch)
     _assert_same(eager, res)
     _assert_replayed(cg, ce)
+    keys = sum(len(e[1]) for e in bp["prob"]._solvers.values())
+    assert _eager_steps(cg.frames) == keys
+    assert 0 < _captures(cg.frames) <= keys
     os.remove(tmp_path / "chunk_000000256.npz")
     resumed, cr = _card_solve(bp, kept, False, monkeypatch)
     assert 0 < resumed.host_syncs < eager.host_syncs
-    assert any(k == "gn.graph" for k, _ in cr.frames)
+    assert _captures(cr.frames) == 0 and _eager_steps(cr.frames) == 0
+    assert _rows(cr.frames, "gn.graph") > 0
     _assert_same(eager, resumed, syncs=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["allow_tf32", "matmul_precision"])
+def test_tf32_turned_on_before_the_first_solve_on_the_card(
+        dev, monkeypatch, how):
+    """TF32 turned on for the process before the first solve of a GMM
+    problem (its prior's precision blocks are a cuBLAS bmm): the system the
+    problem keeps is built with TF32 off, and that solve, and the next with
+    TF32 off again, which runs on the system and graphs the first kept,
+    equal bit for bit the solves of a problem whose first solve ran with
+    TF32 off."""
+    from moshpp_torch.priors.gmm import MaxMixturePrior
+    bp = _chip_problem("bench_problem", 256)
+    assert isinstance(bp["prior"], MaxMixturePrior)
+    real, seen = stageii.make_stageii_system, []
+
+    def recording(*args, **kwargs):
+        seen.append(_tf32_flags())
+        return real(*args, **kwargs)
+
+    clean = dataclasses.replace(bp["prob"])
+    stageii.make_stageii_system = recording
+    try:
+        ref = [_card_solve(dict(bp, prob=clean), bp["opts"], False,
+                           monkeypatch)[0] for _ in range(2)]
+        with _tf32_turned_on(how) as on:
+            assert on[0]
+            first, _ = _card_solve(bp, bp["opts"], False, monkeypatch)
+        second, _ = _card_solve(bp, bp["opts"], False, monkeypatch)
+    finally:
+        stageii.make_stageii_system = real
+    assert seen == [(False, False)] * 2
+    _assert_same(ref[0], first)
+    _assert_same(ref[1], second)
