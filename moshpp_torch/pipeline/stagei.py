@@ -60,10 +60,6 @@ DEFAULT_STAGEI_WEIGHTS = {
     "annealing": (1.0, 0.5, 0.25, 0.125),
 }
 
-# profiler range of the host-side freeze of each annealing step
-# (tools/profile_torch_slice.py --problem stagei reads it)
-FREEZE_RANGE = spans.FREEZE
-
 # the fields of a subject's context that the batched solve's one residual
 # closes over (the frozen structure carries the rest): they must be equal
 # across subjects
@@ -300,7 +296,7 @@ def _face_sq_distances(verts: torch.Tensor, faces: torch.Tensor,
     return torch.sum((pj - cp) ** 2, dim=-1)
 
 
-@spans.spanned(FREEZE_RANGE)
+@spans.spanned(spans.FREEZE)
 def _freeze_stagei_structure(ctx: _StageICtx, betas: torch.Tensor,
                              latents: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The discrete structure at (betas, latents), frozen for one annealing

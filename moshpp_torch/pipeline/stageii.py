@@ -324,17 +324,51 @@ def simulate_markers(prob: StageIIProblem, opts: StageIIOptions,
     return reconstruct_markers(verts, prob.indices, prob.coeffs)
 
 
+class _Term(NamedTuple):
+    """A diagonal term: the rows (x[lo:hi] - aux[anchor]) * weight, the
+    weight a float or a vector over the range, times aux[factor] of each
+    frame where a factor is named."""
+    name: str
+    lo: int
+    hi: int
+    anchor: Optional[str]
+    weight: Union[float, torch.Tensor]
+    factor: Optional[str]
+
+    def rows(self, x: torch.Tensor, aux):
+        """(values, weight) of the term at x (..., D) with aux of the same
+        frames: its rows are their product."""
+        v = x[..., self.lo:self.hi]
+        if self.anchor is not None:
+            v = v - aux[self.anchor]
+        if self.factor is None:
+            return v, self.weight
+        return v, self.weight * aux[self.factor][..., None]
+
+
 class _TermSpec(NamedTuple):
     body_ids: Optional[np.ndarray]        # x-indices of the prior's pose slice
     body_rng: Optional[Tuple[int, int]]   # the same as a range, if contiguous
-    finger_rng: Optional[Tuple[int, int]]  # x-range of the hand-PCA tail
-    face_rng: Optional[Tuple[int, int]]   # x-range of the jaw
+    prior_on: bool                        # the body prior is a term
+    prior_w: float                        # its weight before the factors
+    diag: Tuple[_Term, ...]               # the rest, in the JAX row order
+
+    def prior_weight(self, aux):
+        """The body prior's weight of each frame of aux."""
+        return self.prior_w * aux["anneal"] * aux["wt_pose_scale"]
 
 
-def _term_spec(prob: StageIIProblem, opts: StageIIOptions,
-               model_type: str) -> _TermSpec:
+def _term_spec(prob: StageIIProblem, opts: StageIIOptions, model_type: str,
+               prior=None) -> _TermSpec:
+    """The stage-ii objective beyond the data rows: the body prior (a GMM's
+    or a callable's rows on the prior's pose slice, present with a prior
+    and a slice) and the diagonal terms, the hand, jaw and expression
+    magnitudes, the DMPL magnitude and anchor, and the velocity anchor."""
     info = MODEL_TYPE_INFO[model_type]
     P = prob.sub_model.pose_dof
+    E = _num_extra(opts)
+    D = 3 + P + E
+    wt = opts.wt
     # the prior acts on the full (toes included) body slice, chmosh.py:614
     prior_pose = [i for i in pose_part_ids(model_type, optimize_toes=True)["body"]
                   if i >= 3]
@@ -343,29 +377,35 @@ def _term_spec(prob: StageIIProblem, opts: StageIIOptions,
         body_ids = 3 + np.asarray(prior_pose, np.int64)
         if np.all(np.diff(body_ids) == 1):
             body_rng = (int(body_ids[0]), int(body_ids[-1]) + 1)
-    finger_rng = ((3 + info.body_pose_dof, 3 + P)
-                  if (opts.optimize_fingers and info.has_hands) else None)
+    # per-dof velocity weights, the hand-PCA dofs' scaled by `velo_hands`
+    velo_w = np.full(P, float(wt("velo")), np.float32)
+    terms = []
+    if opts.optimize_fingers and info.has_hands:
+        s, e = 3 + info.body_pose_dof, 3 + P
+        terms.append(_Term("poseH", s, e, None, wt("poseH"), "anneal"))
+        velo_w[s - 3:e - 3] *= float(wt("velo_hands"))
     face = pose_part_ids(model_type, optimize_toes=opts.optimize_toes)["face"]
-    face_rng = ((3 + face[0], 3 + face[-1] + 1)
-                if (opts.optimize_face and face) else None)
-    return _TermSpec(body_ids, body_rng, finger_rng, face_rng)
-
-
-def _velo_weight_vec(prob, opts, spec, device) -> torch.Tensor:
-    """Per-dof velocity weights over the pose vector (hand-PCA dofs scaled
-    by `velo_hands`)."""
-    P = prob.sub_model.pose_dof
-    w = np.full(P, float(opts.wt("velo")), np.float32)
-    vh = float(opts.wt("velo_hands"))
-    if vh != 1.0 and spec.finger_rng is not None:
-        w[spec.finger_rng[0] - 3:spec.finger_rng[1] - 3] *= vh
-    return torch.as_tensor(w, device=device)
+    if opts.optimize_face and face:
+        # jaw and expression magnitudes (JAX `_quad_smalls`)
+        terms += [_Term("poseF", 3 + face[0], 3 + face[-1] + 1, None,
+                        wt("poseF"), "anneal"),
+                  _Term("expr", 3 + P, D, None, wt("expr"), None)]
+    if opts.optimize_dynamics and E:
+        # DMPL magnitude and its extrapolation anchor
+        terms += [_Term("dmpl", 3 + P, D, None, wt("dmpl"), None),
+                  _Term("dmpl_anchor", 3 + P, D, "extra_anchor", 6.0,
+                        "extra_on")]
+    terms.append(_Term("velo", 3, 3 + P, "velo_anchor",
+                       torch.as_tensor(velo_w, device=prob.device),
+                       "velo_on"))
+    return _TermSpec(body_ids, body_rng,
+                     prior is not None and body_ids is not None,
+                     wt("poseB"), tuple(terms))
 
 
 # a body prior: a max-mixture GMM, or a callable on one frame's body slice,
 # (bw,) -> (R,), whose rows the system squares (the horse's)
 Prior = Union[MaxMixturePrior, Callable[[torch.Tensor], torch.Tensor]]
-CALLABLE_PRIOR_RANGE = spans.CALLABLE_PRIOR
 
 
 def make_stageii_residual(prob: StageIIProblem,
@@ -387,37 +427,22 @@ def make_stageii_residual(prob: StageIIProblem,
     `solver.gauss_newton._residual_system(residual, batched_aux=True)` is a
     second, independent derivation of the system (the generic-solver path).
     """
-    spec = _term_spec(prob, opts, model_type)
-    wt = opts.wt
-    P = prob.sub_model.pose_dof
-    E = _num_extra(opts)
-    velo_w = _velo_weight_vec(prob, opts, spec, prob.device)
-    ids = (None if prior is None or spec.body_ids is None
-           else torch.as_tensor(spec.body_ids, device=prob.device))
+    spec = _term_spec(prob, opts, model_type, prior)
+    ids = (torch.as_tensor(spec.body_ids, device=prob.device)
+           if spec.prior_on else None)
     is_gmm = isinstance(prior, MaxMixturePrior)
 
     def residual(x: torch.Tensor, aux) -> torch.Tensor:
-        pose, extra = x[3:3 + P], x[3 + P:]
         sim = simulate_markers(prob, opts, x[None])[0]
         terms = [((sim - aux["markers"]) * aux["mask"][:, None]).reshape(-1)
                  * aux["wt_data"]]
         if ids is not None:
-            w = wt("poseB") * aux["anneal"] * aux["wt_pose_scale"]
             xb = x[ids]
             terms.append((gmm_prior_residual(prior, xb[None])[0] if is_gmm
-                          else prior(xb)) * w)
-        if spec.finger_rng is not None:
-            s, e = spec.finger_rng
-            terms.append(x[s:e] * (wt("poseH") * aux["anneal"]))
-        if spec.face_rng is not None:
-            s, e = spec.face_rng
-            terms.append(x[s:e] * (wt("poseF") * aux["anneal"]))
-            terms.append(extra * wt("expr"))
-        if opts.optimize_dynamics and E:
-            terms.append(extra * wt("dmpl"))
-            terms.append((extra - aux["extra_anchor"])
-                         * (6.0 * aux["extra_on"]))
-        terms.append((pose - aux["velo_anchor"]) * (velo_w * aux["velo_on"]))
+                          else prior(xb)) * spec.prior_weight(aux))
+        for t in spec.diag:
+            v, w = t.rows(x, aux)
+            terms.append(v * w)
         return torch.cat(terms)
 
     return residual
@@ -439,20 +464,15 @@ def make_stageii_system(prob: StageIIProblem,
     is a range of x or, where the family's prior covers a subset of joints
     (the dog), gathered by index.
     """
-    spec = _term_spec(prob, opts, model_type)
+    spec = _term_spec(prob, opts, model_type, prior)
     model = prob.sub_model
     tables = prob.tables
-    P = model.pose_dof
-    E = _num_extra(opts)
-    D = 3 + P + E
-    wt = opts.wt
-    velo_w = _velo_weight_vec(prob, opts, spec, prob.device)
-    use_prior = prior is not None and spec.body_ids is not None
+    D = 3 + model.pose_dof + _num_extra(opts)
     is_gmm = isinstance(prior, MaxMixturePrior)
-    if use_prior and is_gmm:
+    if spec.prior_on and is_gmm:
         # per-component precision quadratic 0.5 L Lᵀ, built once
         PP = 0.5 * torch.einsum("kde,kfe->kdf", prior.chols, prior.chols)
-    elif use_prior:
+    elif spec.prior_on:
         def rows_twice(xb):
             r = prior(xb)
             return r, r
@@ -473,7 +493,7 @@ def make_stageii_system(prob: StageIIProblem,
     def prior_terms(x, aux, f, cost_only: bool):
         """f plus the prior's cost; unless `cost_only` also its gradient
         (N, bw) and block (N, bw, bw) on the prior's slice."""
-        w = wt("poseB") * aux["anneal"] * aux["wt_pose_scale"]
+        w = spec.prior_weight(aux)
         w2 = w * w
         xb = body(x)
         if is_gmm:
@@ -485,11 +505,10 @@ def make_stageii_system(prob: StageIIProblem,
             if cost_only:
                 return f, None, None
             return f, w2[:, None] * gq, w2[:, None, None] * PPk
-        # a profiler range (tools/profile_torch_slice.py reads its share);
         # the slice made contiguous: on a strided one vmap(jacfwd)'s tangent
         # product runs as cuBLAS's batched GEMV, ~5x slower on the H100
         xb = xb.contiguous()
-        with span(CALLABLE_PRIOR_RANGE):
+        with span(spans.CALLABLE_PRIOR):
             if cost_only:
                 rp = prior_rows(xb)
                 return f + w2 * torch.sum(rp * rp, -1), None, None
@@ -506,7 +525,7 @@ def make_stageii_system(prob: StageIIProblem,
         if not cost_only:
             g = torch.zeros_like(x)
             dvec = torch.zeros_like(x)
-        if use_prior:
+        if spec.prior_on:
             f, gb, ppw = prior_terms(x, aux, f, cost_only)
             if not cost_only:
                 if ids is None:
@@ -522,25 +541,8 @@ def make_stageii_system(prob: StageIIProblem,
                 dvec[:, s:e] += w2
             return f
 
-        if spec.finger_rng is not None:
-            s, e = spec.finger_rng
-            wf = (wt("poseH") * aux["anneal"])[:, None]
-            f = diag(f, s, e, x[:, s:e], wf)
-        if spec.face_rng is not None:
-            # jaw and expression magnitudes (JAX `_quad_smalls`)
-            s, e = spec.face_rng
-            wf = (wt("poseF") * aux["anneal"])[:, None]
-            f = diag(f, s, e, x[:, s:e], wf)
-            f = diag(f, 3 + P, D, x[:, 3 + P:], wt("expr"))
-        if opts.optimize_dynamics and E:
-            # DMPL magnitude and its extrapolation anchor
-            extra = x[:, 3 + P:]
-            f = diag(f, 3 + P, D, extra, wt("dmpl"))
-            f = diag(f, 3 + P, D, extra - aux["extra_anchor"],
-                     6.0 * aux["extra_on"][:, None])
-        pose = x[:, 3:3 + P]
-        f = diag(f, 3, 3 + P, pose - aux["velo_anchor"],
-                 velo_w[None, :] * aux["velo_on"][:, None])
+        for t in spec.diag:
+            f = diag(f, t.lo, t.hi, *t.rows(x, aux))
         return f, g, dvec, ppw
 
     def data_weights(aux):
@@ -591,17 +593,9 @@ def report_term_names(prob: StageIIProblem, opts: StageIIOptions, prior,
                       model_type: str) -> Tuple[str, ...]:
     """The report's terms in the JAX package's order: sorted by name, as
     JAX's pytree flattening orders the energies' dict."""
-    spec = _term_spec(prob, opts, model_type)
-    names = ["data"]
-    if prior is not None and spec.body_ids is not None:
-        names.append("poseB")
-    if spec.finger_rng is not None:
-        names.append("poseH")
-    if spec.face_rng is not None:
-        names += ["poseF", "expr"]
-    if opts.optimize_dynamics and _num_extra(opts):
-        names += ["dmpl", "dmpl_anchor"]
-    return tuple(sorted(names + ["velo"]))
+    spec = _term_spec(prob, opts, model_type, prior)
+    return tuple(sorted(["data"] + ["poseB"] * spec.prior_on
+                        + [t.name for t in spec.diag]))
 
 
 # the JAX package's name of the report's term names
@@ -618,13 +612,9 @@ def stageii_term_energies(prob: StageIIProblem, opts: StageIIOptions,
     data rows through the plain forward model, the body prior, the hand,
     jaw and expression magnitudes, the DMPL magnitude and anchor, and the
     velocity term, as the solve's system weighs them."""
-    spec = _term_spec(prob, opts, model_type)
-    wt = opts.wt
-    P = prob.sub_model.pose_dof
-    velo_w = _velo_weight_vec(prob, opts, spec, prob.device)
-    names = report_term_names(prob, opts, prior, model_type)
-    ids = (None if spec.body_ids is None else
-           torch.as_tensor(spec.body_ids, device=prob.device))
+    spec = _term_spec(prob, opts, model_type, prior)
+    ids = (torch.as_tensor(spec.body_ids, device=prob.device)
+           if spec.prior_on else None)
     prior_rows = (None if prior is None or isinstance(prior, MaxMixturePrior)
                   else torch.func.vmap(prior))
 
@@ -632,33 +622,19 @@ def stageii_term_energies(prob: StageIIProblem, opts: StageIIOptions,
         return torch.sum(v * v, dim=-1)
 
     def energies(x, aux):
-        pose, extra = x[:, 3:3 + P], x[:, 3 + P:]
         sim = simulate_markers(prob, opts, x)
         rdata = (sim - aux["markers"]) * (aux["mask"]
                                           * aux["wt_data"][:, None])[..., None]
         out = {"data": torch.sum(rdata * rdata, dim=(1, 2))}
-        if "poseB" in names:
-            w = wt("poseB") * aux["anneal"] * aux["wt_pose_scale"]
+        if spec.prior_on:
             xb = x[:, ids]
             rp = (gmm_prior_residual(prior, xb) if prior_rows is None
                   else prior_rows(xb))
-            out["poseB"] = sq(rp * w[:, None])
-        if "poseH" in names:
-            s, e = spec.finger_rng
-            out["poseH"] = sq(x[:, s:e]
-                              * (wt("poseH") * aux["anneal"])[:, None])
-        if "poseF" in names:
-            s, e = spec.face_rng
-            out["poseF"] = sq(x[:, s:e]
-                              * (wt("poseF") * aux["anneal"])[:, None])
-            out["expr"] = sq(extra * wt("expr"))
-        if "dmpl" in names:
-            out["dmpl"] = sq(extra * wt("dmpl"))
-            out["dmpl_anchor"] = sq((extra - aux["extra_anchor"])
-                                    * (6.0 * aux["extra_on"])[:, None])
-        out["velo"] = sq((pose - aux["velo_anchor"])
-                         * (velo_w[None, :] * aux["velo_on"][:, None]))
-        return {k: out[k] for k in names}
+            out["poseB"] = sq(rp * spec.prior_weight(aux)[:, None])
+        for t in spec.diag:
+            v, w = t.rows(x, aux)
+            out[t.name] = sq(v * w)
+        return dict(sorted(out.items()))
 
     return energies
 
@@ -765,6 +741,39 @@ def _velo_aux(x: torch.Tensor, P: int, dynamics: bool) -> dict:
     if dynamics and x.shape[1] > 3 + P:
         out.update(extra_anchor=anchor(x[:, 3 + P:]), extra_on=on)
     return out
+
+
+def _phase_aux(opts: StageIIOptions, obs: torch.Tensor, maskf: torch.Tensor,
+               P: int):
+    """aux_for(idx=None, scale=1.0): a phase's aux of the frames idx (all
+    by default) of obs (F, M, 3) and maskf (F, M): the data weights of the
+    observed markers, wt_data = wt("data") x 46 / n_obs, the annealing
+    factor anneal = 1 + (M - n_obs) / M x wt("annealing"), the prior's
+    scale, and the velocity anchors off and, with DMPL dims, the extra
+    anchors off (`_velo_aux` turns them on). Expressions get no anchor."""
+    F, M = maskf.shape
+    dev = maskf.device
+    wt = opts.wt
+    n_anchored = _num_extra(opts) if opts.optimize_dynamics else 0
+    n_obs = torch.sum(maskf, dim=1)
+    wt_data = wt("data") * NUM_TRAIN_MARKERS / torch.clamp(n_obs, min=1.0)
+    anneal = 1.0 + (M - n_obs) / M * wt("annealing")
+
+    def aux_for(idx=None, scale=1.0):
+        n = F if idx is None else len(idx)
+        pick = (lambda a: a) if idx is None else (lambda a: a[idx])
+        z = torch.zeros((n,), dtype=torch.float32, device=dev)
+        aux = {"markers": pick(obs), "mask": pick(maskf),
+               "wt_data": pick(wt_data), "anneal": pick(anneal),
+               "wt_pose_scale": torch.full((n,), scale, device=dev),
+               "velo_anchor": torch.zeros((n, P), device=dev),
+               "velo_on": z}
+        if n_anchored:
+            aux.update(extra_anchor=torch.zeros((n, n_anchored), device=dev),
+                       extra_on=z)
+        return aux
+
+    return aux_for
 
 
 @spanned(spans.SOLVE)
@@ -893,11 +902,11 @@ def _chunk_fingerprint(prob: StageIIProblem, inner_opts: StageIIOptions,
         "joint_shapedirs", "hands_components", "hands_mean")]
     arrays += [prob.frame_c0, prob.frame_c1, prob.frame_c2, prob.coeffs,
                prob.betas]
-    body_ids = _term_spec(prob, inner_opts, model_type).body_ids
+    spec = _term_spec(prob, inner_opts, model_type, prior)
     if isinstance(prior, MaxMixturePrior):
         arrays += [prior.means, prior.chols, prior.sqrt_neg_log_w]
-    elif prior is not None and body_ids is not None:
-        arrays.append(prior(torch.linspace(-0.5, 0.5, len(body_ids),
+    elif spec.prior_on:
+        arrays.append(prior(torch.linspace(-0.5, 0.5, len(spec.body_ids),
                                            device=prob.device)))
     for a in arrays:
         h.update(a.detach().cpu().numpy().tobytes())
@@ -1061,11 +1070,8 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
     model = prob.sub_model
     obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=device)
     maskf = torch.as_tensor(mask, device=device).to(torch.float32)
-    F, M = maskf.shape
+    F = maskf.shape[0]
     P = model.pose_dof
-    # DMPL dims carry extrapolation anchors; expressions have none
-    n_anchored = _num_extra(opts) if opts.optimize_dynamics else 0
-    wt = opts.wt
 
     dl_opts = DoglegOptions(maxiter=opts.maxiter, delta_0=0.5,
                             linear_solver=opts.linear_solver,
@@ -1076,25 +1082,7 @@ def _solve(prob, opts, markers_obs, mask, prior, model_type, device,
     dl_polish = dataclasses.replace(dl_opts, linear_solver=polish_solver,
                                     cg_iters=opts.cg_iters_polish)
 
-    n_obs = torch.sum(maskf, dim=1)
-    wt_data = wt("data") * NUM_TRAIN_MARKERS / torch.clamp(n_obs, min=1.0)
-    anneal = 1.0 + (M - n_obs) / M * wt("annealing")
-
-    def aux_for(idx, scale=1.0):
-        n = F if idx is None else len(idx)
-        pick = (lambda a: a) if idx is None else (lambda a: a[idx])
-        z = torch.zeros((n,), dtype=torch.float32, device=device)
-        aux = {"markers": pick(obs), "mask": pick(maskf),
-               "wt_data": pick(wt_data), "anneal": pick(anneal),
-               "wt_pose_scale": torch.full((n,), scale, device=device),
-               "velo_anchor": torch.zeros((n, P), device=device),
-               "velo_on": z}
-        if n_anchored:
-            aux.update(extra_anchor=torch.zeros((n, n_anchored),
-                                                device=device),
-                       extra_on=z)
-        return aux
-
+    aux_for = _phase_aux(opts, obs, maskf, P)
     syncs = 0
     # the report's readings stay on the device: (before, after, mean
     # iterations) of each phase, read once after the last
@@ -1375,19 +1363,7 @@ def probe_inputs(prob: StageIIProblem, opts: StageIIOptions, markers_obs,
     dev = prob.device
     obs = torch.as_tensor(markers_obs, dtype=torch.float32, device=dev)
     maskf = torch.as_tensor(mask, device=dev).to(torch.float32)
-    F, M = maskf.shape
-    P = prob.sub_model.pose_dof
-    E = _num_extra(opts)
-    wt = opts.wt
-    n_obs = torch.sum(maskf, dim=1)
-    zeros = lambda *shape: torch.zeros((F,) + shape, device=dev)
-    aux = {"markers": obs, "mask": maskf,
-           "wt_data": wt("data") * NUM_TRAIN_MARKERS
-           / torch.clamp(n_obs, min=1.0),
-           "anneal": 1.0 + (M - n_obs) / M * wt("annealing"),
-           "wt_pose_scale": torch.full((F,), 10.0, device=dev),
-           "velo_anchor": zeros(P), "velo_on": zeros(),
-           "extra_anchor": zeros(E), "extra_on": zeros()}
+    aux = _phase_aux(opts, obs, maskf, prob.sub_model.pose_dof)(None, 10.0)
     return rigid_init(prob, opts, obs, maskf), aux
 
 

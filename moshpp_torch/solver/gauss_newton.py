@@ -114,14 +114,7 @@ def _bmv(B, v):
     return torch.bmm(B, v[..., None])[..., 0]
 
 
-# profiler ranges of the residual-driven system and of the Cholesky
-# direction (tools/profile_torch_slice.py --problem stagei reads them)
-JACOBIAN_RANGE = spans.JACFWD
-NORMAL_RANGE = spans.NORMAL_EQUATIONS
-CHOLESKY_RANGE = spans.CHOLESKY
-
-
-@spanned(CHOLESKY_RANGE)
+@spanned(spans.CHOLESKY)
 def _gn_direction_cholesky(g, B):
     """Exact GN direction via Cholesky: (p_gn (N, D), ok (N,))."""
     L, info = torch.linalg.cholesky_ex(B)
@@ -490,9 +483,9 @@ def _residual_system(residual_fn: Callable, batched_aux: bool) -> GNSystem:
     res = torch.func.vmap(residual_fn, in_dims=in_dims)
 
     def system_fn(x, aux):
-        with span(JACOBIAN_RANGE):
+        with span(spans.JACFWD):
             J, r = jac(x, aux)
-        with span(NORMAL_RANGE):
+        with span(spans.NORMAL_EQUATIONS):
             Jt = J.transpose(1, 2)
             return (torch.sum(r * r, dim=-1),
                     torch.bmm(Jt, r[..., None])[..., 0], torch.bmm(Jt, J))

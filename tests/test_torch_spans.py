@@ -86,13 +86,9 @@ def test_span_table_names_every_phase_and_layer():
         n for n in spans.SPANS if n.startswith(spans.PHASE_PREFIX)]
     assert set(spans.SPANS.values()) == {spans.SCHEDULE, spans.SYSTEM,
                                          spans.DOGLEG, spans.STAGEI}
-    # the constants the profiling tool imports stay where they were
-    from moshpp_torch.pipeline.stagei import FREEZE_RANGE
-    from moshpp_torch.solver.gauss_newton import (CHOLESKY_RANGE,
-                                                  JACOBIAN_RANGE,
-                                                  NORMAL_RANGE)
-    assert {FREEZE_RANGE, CHOLESKY_RANGE, JACOBIAN_RANGE, NORMAL_RANGE,
-            stageii.CALLABLE_PRIOR_RANGE} <= set(spans.SPANS)
+    # the spans the solver and stage i open are in the table
+    assert {spans.FREEZE, spans.CHOLESKY, spans.JACFWD,
+            spans.NORMAL_EQUATIONS, spans.CALLABLE_PRIOR} <= set(spans.SPANS)
 
 
 def test_stageii_span_tree(golden):

@@ -193,10 +193,6 @@ def profile_stagei():
     import torch
     from torch.profiler import ProfilerActivity
     cs = _chip_smoke(REPO)
-    from moshpp_torch.pipeline.stagei import FREEZE_RANGE
-    from moshpp_torch.solver.gauss_newton import (CHOLESKY_RANGE,
-                                                  JACOBIAN_RANGE,
-                                                  NORMAL_RANGE)
     card = cs.card_line()
     model_c, prior_c = cs.stagei_model("cpu")
     world = cs.stagei_world(0, cs.STAGEI_FRAMES, model_c, prior_c)
@@ -210,8 +206,9 @@ def profile_stagei():
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
         traced, res_t = _timed(solve)
-    from moshpp_torch.utils.spans import SPANS
-    names = (JACOBIAN_RANGE, NORMAL_RANGE, CHOLESKY_RANGE, FREEZE_RANGE)
+    from moshpp_torch.utils.spans import (CHOLESKY, FREEZE, JACFWD,
+                                          NORMAL_EQUATIONS, SPANS)
+    names = (JACFWD, NORMAL_EQUATIONS, CHOLESKY, FREEZE)
     events = prof.key_averages()
     rows, busy = _kernel_rows(events, SPANS)
     ranges = _range_lines(prof, names, busy)
