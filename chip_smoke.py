@@ -739,7 +739,11 @@ def check_marker_kernels(bp, records, phase, suffix=""):
             **timed(lambda: mj.marker_rows(sm, trans, tables, with_jac, extra),
                     lambda: mj.marker_rows_plain(sm, trans, tables, with_jac,
                                                  extra), n_plain=2),
-            **bound(read, (sim_k, jm_k), f32, f64))
+            **bound(read, (sim_k, jm_k), f32, f64),
+            **rows_buckets(tables, route, with_jac, lambda n: mj.marker_rows(
+                smalls_cut(sm, n), trans[:n], tables, with_jac,
+                None if extra is None else extra[:n])))
+        log_rows_buckets(name, records[name])
         torch.cuda.empty_cache()
 
 
@@ -815,11 +819,60 @@ def extras_occupancy(tables, F, cols=False) -> dict:
 
 
 def rows_tables(tables, with_jac):
-    """The problem tables a marker_rows call reads."""
-    t = [tables.w3, tables.vsh3, tables.pd3, tables.cf]
+    """The problem tables a marker_rows call reads: the float64 posedirs rows
+    of the pose blend and, with the Jacobian, the float32 ones of the pose
+    columns."""
+    t = [tables.w3, tables.vsh3, tables.pd64, tables.cf]
     if with_jac:
-        t += [tables.s3, tables.ancmask, tables.hc]
+        t += [tables.pdt, tables.s3, tables.ancmask, tables.hc]
     return t
+
+
+def rows_occupancy(tables, route, with_jac, F, fold=False) -> dict:
+    """Frames a block (`mj.rows_frames_per_block`), shared memory a block
+    and blocks an SM of the marker_rows launch at F frames, from its
+    occupancy export."""
+    import ctypes
+    import torch
+    from moshpp_torch import kernels
+    from moshpp_torch.ops import marker_jac as mj
+    lib, _ = kernels.library()
+    smem = ctypes.c_int()
+    blocks = lib.marker_rows_occupancy(
+        int(with_jac), {"": 0, "ext": 1, "tiled": 2}[route], int(fold),
+        tables.num_joints, tables.feat_n, tables.body_dof, tables.hand_dof,
+        tables.n_extra if route == "ext" else 0, tables.hand_blocks,
+        ctypes.byref(smem))
+    fpb = mj.rows_frames_per_block(
+        F, tables.num_markers, kernels.sm_count(torch.device("cuda", 0)),
+        with_jac)
+    return dict(frames_per_block=fpb, smem_bytes=smem.value,
+                blocks_per_sm=blocks)
+
+
+def rows_buckets(tables, route, with_jac, fn) -> dict:
+    """A marker_rows launch's occupancy at F=FRAMES, and its device ms
+    (fn(n) on the first n frames) and occupancy at each of BUCKETS."""
+    return dict(**rows_occupancy(tables, route, with_jac, FRAMES),
+                bucket_ms_device=bucket_ms(fn),
+                bucket_occupancy={n: rows_occupancy(tables, route, with_jac,
+                                                    n) for n in BUCKETS})
+
+
+def log_rows_buckets(name, r):
+    log(f"  {name}: device ms {r['ms_device']:.4f} at F={FRAMES}, "
+        + ", ".join(f"{v:.4f} at F={n}" for n, v in
+                    r["bucket_ms_device"].items())
+        + f"; {r['blocks_per_sm']} blocks an SM, {r['smem_bytes']} B shared "
+        f"memory a block, {r['frames_per_block']} frames a block ("
+        + ", ".join(f"{o['frames_per_block']} at F={n}"
+                    for n, o in r["bucket_occupancy"].items()) + ")")
+
+
+def smalls_cut(sm, n):
+    """The first n frames of a JointSmalls."""
+    from moshpp_torch.ops.lbs_jacobian import JointSmalls
+    return JointSmalls(*[None if a is None else a[:n] for a in sm])
 
 
 def check_tiled_kernels(bp, records, phase):
@@ -938,7 +991,12 @@ def check_tiled_kernels(bp, records, phase):
                                                        tables, with_jac),
                     n_plain=2),
             **bound((*sm[:6], trans, vpshift, *rows_tables(tables, with_jac)),
-                    written, f32, f64))
+                    written, f32, f64),
+            **rows_buckets(tables, "tiled", with_jac,
+                           lambda n: mj.marker_rows_tiled(
+                               smalls_cut(sm, n), trans[:n], vpshift[:n],
+                               tables, with_jac)))
+        log_rows_buckets(name, records[name])
         torch.cuda.empty_cache()
 
     # extras_cols on the kernel route's datr and uv, then the whole route
@@ -1099,12 +1157,15 @@ def check_fold_kernels(bp, records, x0, aux, phase):
                                    hold=True),
         library_ms=None,
         **bound((*read, *rows_tables(tables, True), obs, w), written,
-                f32 + F * M * (3 * Dp + 9), f64))
+                f32 + F * M * (3 * Dp + 9), f64),
+        **rows_occupancy(tables, route, True, F, fold=True))
     r = records[name]
     log(f"  {name}: {r['ms_device']:.4f} ms device ({r['ms']:.4f} host-"
         f"inclusive), unfolded kernel + weighting {r['unfolded_ms_device']:.4f}"
         f" ms device ({r['unfolded_ms']:.4f}), plain {r['plain_ms']:.3f} ms, "
-        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+        f"{r['blocks_per_sm']} blocks an SM, {r['smem_bytes']} B shared "
+        f"memory a block")
     del out_k, rw_k, jw_k, written
     torch.cuda.empty_cache()
 

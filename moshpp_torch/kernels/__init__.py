@@ -210,27 +210,28 @@ _SIGNATURES = {
     "fk_smalls_occupancy": [_I, _I, _I, _I, _I, _P, _P],
     "marker_rows_launch": [_I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P,
-                           _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _P, _P, _P, _P],
+                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _P, _P, _P, _I, _I, _P],
     "marker_rows_fold_launch": [_I, _I, _I, _I, _I, _I, _I,
                                 _P, _P, _P, _P, _P, _P, _P,
-                                _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _P, _P, _P, _P, _P, _P],
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _P, _P, _P, _P, _P, _I, _I, _P],
     "dogleg_direction_launch": [_I, _I, _I, ctypes.c_float, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _P],
     "pcg_direction_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dogleg_direction_occupancy": [_I, _I, _P, _P],
-    "marker_rows_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "marker_rows_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "marker_rows_tile": [_P, _P],
     "fk_smalls_tiled_launch": [_I, _I, _P, _P, _P, _P, _I, _I,
                                _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "marker_rows_tiled_launch": [_I, _I, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _P, _P, _P, _P],
+                                 _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _I, _I, _P],
     "marker_rows_tiled_fold_launch": [_I, _I, _I, _I, _I, _I, _I, _I,
                                       _P, _P, _P, _P, _P, _P, _P,
-                                      _P, _P, _P, _P, _P, _P, _P,
-                                      _P, _P, _P, _P, _P, _P, _P],
+                                      _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _P, _P, _P, _P, _P, _P, _I, _I, _P],
     "extras_tangent_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "extras_tangent_occupancy": [_I, _I, _I, _P, _P],
     "extras_cols_launch": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,

@@ -106,10 +106,17 @@ class MarkerJacTables:
     wnz_w: torch.Tensor        # (M, 3, K) float32 the weight (0 as padding)
     s3: torch.Tensor           # (M, 3, J) w @ anc
     vsh3: torch.Tensor         # (M, 3, 3) shaped rest positions [m, k, c]
-    pd3: torch.Tensor          # (M, 3, 3, featN) posedirs rows
+    # the posedirs rows joint-last, [m, k, c, ab, j - 1] = posedirs row
+    # (m, k, c) at feature 9 (j - 1) + ab: the marker_rows kernels read them
+    # coalesced over joints
+    pdt: torch.Tensor          # (M, 3, 3, 9, J - 1), or (M, 3, 3, 0) empty
+    pd64: torch.Tensor         # pdt in float64, for the float64 pose blend
     cf: torch.Tensor           # (M, 3) marker coefficients
     body_dof: int
     hand_dof: int
+    # diagonal blocks of hc the marker_rows kernels multiply by, one a hand
+    # when hc is block-diagonal by hand, else 1 (the full product)
+    hand_blocks: int
     # extra shape dims: E direction columns of joint_shapedirs / shapedirs
     # (E = 0: zero-width tables)
     djnt: torch.Tensor         # (J, E, 3) rest-joint directions
@@ -130,7 +137,13 @@ class MarkerJacTables:
 
     @property
     def feat_n(self) -> int:
-        return self.pd3.shape[-1]
+        return 9 * self.pdt.shape[-1] if self.pdt.dim() == 5 else 0
+
+    @property
+    def pd3(self) -> torch.Tensor:
+        """The posedirs rows in feature order, (M, 3, 3, featN)."""
+        M = self.num_markers
+        return self.pdt.transpose(-1, -2).reshape(M, 3, 3, self.feat_n)
 
     @property
     def n_extra(self) -> int:
@@ -203,6 +216,13 @@ def prepare_marker_jac_tables(model: SurfaceModel,
     wnz_j, wnz_w = sparse_weights(w_i)
     pd = (model.posedirs.cpu().numpy()[inst] if has_pb
           else np.zeros((3 * M, 3, 0), np.float32))
+    featN = pd.shape[-1]
+    if featN not in (0, 9 * (J - 1)):
+        raise ValueError(f"posedirs width {featN}: the kernels take "
+                         f"9 (J - 1) = {9 * (J - 1)} features or none")
+    pdt = (pd.reshape(M, 3, 3, J - 1, 9).transpose(0, 1, 2, 4, 3)
+           if featN else pd.reshape(M, 3, 3, 0))
+    hc = model.hands_components.cpu().numpy() if hand_dof else None
     djnt = model.joint_shapedirs.cpu().numpy().astype(np.float64)[
         ..., cols].transpose(0, 2, 1)                          # (J, E, 3)
     dtrel = djnt.copy()
@@ -220,17 +240,19 @@ def prepare_marker_jac_tables(model: SurfaceModel,
         trel=t(trel),
         anc=t(anc),
         ancmask=t(bits.view(np.int64), torch.int64),
-        hc=t(model.hands_components.cpu().numpy()) if hand_dof else None,
+        hc=t(hc) if hand_dof else None,
         hands_mean=t(model.hands_mean.cpu().numpy()) if hand_dof else None,
         w3=t(w_i.reshape(M, 3, J)),
         wnz_j=t(wnz_j.reshape(M, 3, -1), torch.int32),
         wnz_w=t(wnz_w.reshape(M, 3, -1)),
         s3=t((w_i @ anc).reshape(M, 3, J)),
         vsh3=t(v_shaped[inst].reshape(M, 3, 3)),
-        pd3=t(pd.reshape(M, 3, 3, -1)),
+        pdt=t(pdt),
+        pd64=t(pdt, torch.float64),
         cf=t(coeffs.detach().cpu().numpy()),
         body_dof=info.body_pose_dof,
         hand_dof=hand_dof,
+        hand_blocks=hand_blocks(hc, info.num_hands) if hand_dof else 1,
         djnt=t(djnt),
         dtrel=t(dtrel),
         dv=t(dv),
@@ -239,6 +261,32 @@ def prepare_marker_jac_tables(model: SurfaceModel,
             E, 6 * J)),
         vdirs=t(dv.transpose(2, 0, 1, 3).reshape(E, 9 * M)),
     )
+
+
+def block_diagonal_by_hand(hc: Optional[np.ndarray],
+                           num_hands: int) -> Optional[bool]:
+    """Whether the hand-PCA components hc (hand_dof, 45 num_hands) map each
+    hand's 45 axis-angle columns onto its own hand_dof / num_hands rows
+    alone: every entry off those diagonal blocks exactly zero. None without
+    hands (no hc)."""
+    if hc is None or hc.size == 0:
+        return None
+    nd, nh = hc.shape
+    if num_hands < 1 or nd % num_hands or nh % num_hands:
+        return False
+    bd, bh = nd // num_hands, nh // num_hands
+    off = np.ones(hc.shape, bool)
+    for b in range(num_hands):
+        off[b * bd:(b + 1) * bd, b * bh:(b + 1) * bh] = False
+    return not bool(np.any(hc[off] != 0))
+
+
+def hand_blocks(hc: Optional[np.ndarray], num_hands: int) -> int:
+    """The diagonal blocks of hc the marker_rows kernels take: one a hand
+    when hc is block-diagonal by hand (the per-hand products skip exact
+    zeros only, so the columns are the full product's bit for bit), else 1,
+    the full product."""
+    return num_hands if block_diagonal_by_hand(hc, num_hands) else 1
 
 
 def sparse_weights(w: np.ndarray):
@@ -340,6 +388,40 @@ def fk_smalls(theta: torch.Tensor, tables: MarkerJacTables,
 
 # ---- marker_rows -------------------------------------------------------------
 
+ROWS_MARKERS = 8        # markers a block (csrc/marker_rows.cu kTM)
+ROWS_TILE_FRAMES = 2    # frames a tile (kTF)
+ROWS_MAX_TILES = 8      # tiles a block at most
+# blocks an SM at the cells' widths: the Jacobian programs, the sim programs
+ROWS_BLOCKS_PER_SM = {True: 2, False: 3}
+
+
+def rows_frames_per_block(F: int, M: int, sms: int, with_jac: bool) -> int:
+    """Frames a block of a marker_rows launch of F frames and M markers on a
+    card of `sms` SMs: the most tiles a block (at most ROWS_MAX_TILES, so
+    that a block stages its markers' tables for many frames) whose grid
+    costs within 5 % of the fewest tile-times, counted as whole waves of
+    `sms` x ROWS_BLOCKS_PER_SM[with_jac] blocks times tiles a block. On the
+    H100's 132 SMs at M = 46, with the Jacobian: 16 frames at F = 4096 and
+    2048, 12 at 1024 and 512, 6 at 256, 4 at 128 (192 blocks); a grid of a
+    fixed 16 frames would leave 36 SMs idle at F = 128."""
+    tiles = -(-F // ROWS_TILE_FRAMES)
+    mtiles = -(-M // ROWS_MARKERS)
+    slots = max(1, sms * ROWS_BLOCKS_PER_SM[with_jac])
+    cost = {n: -(-(-(-tiles // n) * mtiles) // slots) * n
+            for n in range(1, ROWS_MAX_TILES + 1)}
+    least = min(cost.values())
+    n = max(n for n, c in cost.items() if c <= 1.05 * least)
+    return n * ROWS_TILE_FRAMES
+
+
+def _rows_launch_tail(tables: MarkerJacTables, F: int, device,
+                     with_jac: bool) -> tuple:
+    """The launchers' last arguments: frames a block and hand blocks."""
+    return (rows_frames_per_block(F, tables.num_markers,
+                                  kernels.sm_count(device), with_jac),
+            tables.hand_blocks)
+
+
 def _check_smalls(sm: JointSmalls, F: int, J: int, with_jac: bool) -> None:
     """Raise unless the joint quantities a marker_rows kernel reads are
     contiguous float32 CUDA tensors of their shapes."""
@@ -424,9 +506,10 @@ def marker_rows(sm: JointSmalls, trans: torch.Tensor,
         int(with_jac), F, M, J, tables.feat_n, tables.body_dof,
         tables.hand_dof, D, p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot),
         p(sm.wtr), p(sm.dr), p(trans), p(tables.w3), p(tables.s3),
-        p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
-        p(tables.hc), p(sim), p(jm), E, p(extra), p(sm.datr), p(tables.dv),
-        frames=F)
+        p(tables.vsh3), p(tables.pdt), p(tables.pd64), p(tables.cf),
+        p(tables.ancmask), p(tables.hc), p(sim), p(jm), E, p(extra),
+        p(sm.datr), p(tables.dv),
+        *_rows_launch_tail(tables, F, trans.device, with_jac), frames=F)
     return sim, jm
 
 
@@ -482,9 +565,11 @@ def marker_rows_fold(sm: JointSmalls, trans: torch.Tensor,
         "marker_rows_fold_launch", _names(True, _inline_route(tables), True)[1],
         F, M, J, tables.feat_n, tables.body_dof, tables.hand_dof, D,
         p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr),
-        p(trans), p(tables.w3), p(tables.s3), p(tables.vsh3), p(tables.pd3),
-        p(tables.cf), p(tables.ancmask), p(tables.hc), p(rw), p(jw), E,
-        p(extra), p(sm.datr), p(tables.dv), p(obs), p(wrow), frames=F)
+        p(trans), p(tables.w3), p(tables.s3), p(tables.vsh3), p(tables.pdt),
+        p(tables.pd64), p(tables.cf), p(tables.ancmask), p(tables.hc), p(rw),
+        p(jw), E,
+        p(extra), p(sm.datr), p(tables.dv), p(obs), p(wrow),
+        *_rows_launch_tail(tables, F, trans.device, True), frames=F)
     return rw, jw
 
 
@@ -615,8 +700,9 @@ def marker_rows_tiled(sm: JointSmalls, trans: torch.Tensor,
         int(with_jac), F, M, J, tables.feat_n, tables.body_dof,
         tables.hand_dof, D, E, p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot),
         p(sm.wtr), p(sm.dr), p(trans), p(tables.w3), p(tables.s3),
-        p(tables.vsh3), p(tables.pd3), p(tables.cf), p(tables.ancmask),
-        p(tables.hc), p(vpshift), p(sim), p(jm), p(uv), frames=F)
+        p(tables.vsh3), p(tables.pdt), p(tables.pd64), p(tables.cf),
+        p(tables.ancmask), p(tables.hc), p(vpshift), p(sim), p(jm), p(uv),
+        *_rows_launch_tail(tables, F, trans.device, with_jac), frames=F)
     return sim, jm, uv
 
 
@@ -658,9 +744,11 @@ def marker_rows_tiled_fold(sm: JointSmalls, trans: torch.Tensor,
         "marker_rows_tiled_fold_launch", ROWS_JAC_TILED_FOLD, F, M, J,
         tables.feat_n, tables.body_dof, tables.hand_dof, D, E, p(sm.grot),
         p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr), p(sm.dr), p(trans),
-        p(tables.w3), p(tables.s3), p(tables.vsh3), p(tables.pd3),
-        p(tables.cf), p(tables.ancmask), p(tables.hc), p(vpshift), p(rw),
-        p(jw), p(uv), p(obs), p(wrow), frames=F)
+        p(tables.w3), p(tables.s3), p(tables.vsh3), p(tables.pdt),
+        p(tables.pd64), p(tables.cf), p(tables.ancmask), p(tables.hc),
+        p(vpshift), p(rw),
+        p(jw), p(uv), p(obs), p(wrow),
+        *_rows_launch_tail(tables, F, trans.device, True), frames=F)
     return rw, jw, uv
 
 

@@ -76,6 +76,19 @@ def _tables(family, dof_per_hand, M, device, seed=0, E=0):
         model, idx, coeffs, betas, extra_cols=range(10, 10 + E)), rng
 
 
+def _frame_inputs(model, device, rng, M):
+    """(frame indices, coefficients, betas) of M markers on a model, drawn
+    as `_tables` draws them."""
+    nb = min(10, model.num_shape_dirs)
+    betas = torch.as_tensor((rng.normal(size=nb) * 0.3).astype(np.float32),
+                            device=device)
+    can_v = model.v_template + torch.einsum("vcb,b->vc",
+                                            model.shapedirs[..., :nb], betas)
+    lat = can_v[rng.choice(can_v.shape[0], M, replace=False)] + 0.01
+    idx = select_frame_indices(can_v, lat)
+    return idx, marker_coeffs(can_v, lat, idx), betas
+
+
 CASES = [("smplh", 6, 7), ("smplh", 24, 46), ("smpl", 0, 5), ("mano", 6, 7),
          ("smplx", 24, 46), ("animal_horse", 0, 46), ("animal_dog", 0, 46),
          ("object", 0, 10)]
@@ -524,9 +537,15 @@ def test_marker_rows_tiled_fold_kernel_matches(dev, E):
 
 
 RAGGED_FAMILIES = [("smplh", 24), ("smpl", 6), ("mano", 6), ("smplx", 24)]
-# (M, F): marker and frame counts off the kernel's tiles (4 markers, 2
-# frames, 16 frames a block)
-RAGGED_SHAPES = [(1, 1), (7, 17), (46, 130), (47, 17), (47, 130), (1, 130)]
+# (M, F): marker and frame counts off the kernel's tiles (8 markers a block,
+# 2 frames a tile) and off the blocks' frames, which
+# `mj.rows_frames_per_block` picks from F and M (on 132 SMs, with the
+# Jacobian: 2 at M = 9 up to F = 513, 4 at M = 47 and F = 129, 12 at M = 47
+# and F = 517): one marker past a tile at F = 1 and one frame past a tile
+# (9, 1), (9, 3), (17, 5); one frame past a block at the 128- and 512-frame
+# compaction buckets (47, 129), (9, 513), (47, 517)
+RAGGED_SHAPES = [(1, 1), (7, 17), (46, 130), (47, 17), (47, 130), (1, 130),
+                 (9, 1), (9, 3), (17, 5), (47, 129), (9, 513), (47, 517)]
 
 
 @pytest.mark.parametrize("E", [0, 1, 16, 20, 80])
@@ -593,16 +612,115 @@ def test_marker_rows_ragged_tiles(dev, family, dph, M, F, E):
 
 def test_marker_rows_occupancy(dev):
     """Each marker_rows instantiation at the slices' widths (J=52/55,
-    featN=459/486) fits at least two blocks an SM."""
+    featN=459/486, 24 PCA dofs a hand, with the hand blocks and with the
+    full hc) keeps at least 16 warps resident on an SM, and the Jacobian
+    programs the blocks an SM that `mj.rows_frames_per_block` assumes; the
+    library's tile is the one the rule mirrors."""
     lib, _ = kernels.library()
     smem = ctypes.c_int()
+    markers, frames = ctypes.c_int(), ctypes.c_int()
+    threads = lib.marker_rows_tile(ctypes.byref(markers), ctypes.byref(frames))
+    assert (markers.value, frames.value) == (mj.ROWS_MARKERS,
+                                             mj.ROWS_TILE_FRAMES)
     widths = {0: (52, 66, 0), 1: (52, 66, 8), 2: (55, 75, 80)}
     for jac, route, fold in [(j, r, f) for j in (1, 0) for r in (0, 1, 2)
                              for f in (0, 1) if j or not f]:
         J, body, E = widths[route]
-        blocks = lib.marker_rows_occupancy(jac, route, fold, J, 9 * (J - 1),
-                                           body, 48, E, ctypes.byref(smem))
-        assert blocks >= 2, (jac, route, fold, blocks, smem.value)
+        for hand_blocks in (2, 1):
+            blocks = lib.marker_rows_occupancy(jac, route, fold, J,
+                                               9 * (J - 1), body, 48, E,
+                                               hand_blocks, ctypes.byref(smem))
+            key = (jac, route, fold, hand_blocks, blocks, smem.value)
+            assert blocks * threads // 32 >= 16, key
+            if jac:
+                assert blocks == mj.ROWS_BLOCKS_PER_SM[True], key
+    assert lib.marker_rows_occupancy(1, 0, 0, 52, 459, 66, 48, 0, 0,
+                                     ctypes.byref(smem)) == 0
+
+
+@pytest.mark.parametrize("family", ["smplh", "smplx"])
+def test_marker_rows_hand_chain_paths(dev, family):
+    """The hand-PCA chain's two paths at full width (24 PCA dofs a hand):
+    on the block-diagonal hc the per-hand path, against the plain version
+    and bit for bit against the full product forced on the same tables;
+    with one nonzero entry planted off the hand blocks, the full path (the
+    tables find it), against the plain version; each with the Jacobian,
+    folded and not."""
+    model, tables, rng = _tables(family, 24, 46, dev)
+    assert tables.hand_blocks == 2
+    planted = model.hands_components.clone()
+    planted[3, 50] = 0.05
+    bad = dataclasses.replace(model, hands_components=planted)
+    mj_bad = mj.prepare_marker_jac_tables(
+        bad, *_frame_inputs(bad, dev, rng, 46))
+    assert mj_bad.hand_blocks == 1
+    F = 37
+    for t, m in ((tables, model), (mj_bad, bad)):
+        x = torch.as_tensor((rng.normal(size=(F, t.dof)) * 0.5)
+                            .astype(np.float32), device=dev)
+        theta, trans, _ = mj.kernel_inputs(m, t, x)
+        sm = mj.fk_smalls_plain(theta, t, True)
+        sim_k, jm_k = mj.marker_rows(sm, trans, t, True)
+        sim_p, jm_p = mj.marker_rows_plain(sm, trans, t, True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(sim_k, sim_p, rtol=0, atol=TOL_SIM)
+        scale = max(float(jm_p.abs().max()), 1.0)
+        torch.testing.assert_close(jm_k, jm_p, rtol=0, atol=3e-4 * scale)
+        obs, w = _fold_inputs(t, F, rng, dev)
+        rw_k, jw_k = mj.marker_rows_fold(sm, trans, t, obs, w)
+        rw_p, jw_p = mj.marker_rows_fold_plain(sm, trans, t, obs, w)
+        _check_fold(rw_k, jw_k, rw_p, jw_p, sim_k, jm_k, obs, w, t.dof)
+        if t is tables:
+            full = dataclasses.replace(t, hand_blocks=1)
+            _, jm_f = mj.marker_rows(sm, trans, full, True)
+            torch.cuda.synchronize()
+            assert torch.equal(jm_f, jm_k)
+
+
+@pytest.mark.parametrize("E", [0, 8, 20])
+def test_marker_rows_frames_a_block(dev, monkeypatch, E):
+    """Every route's programs give the same bits whatever the frames a
+    block (whole tiles: 2, 4, 6, 16 forced, and the rule's choice), at a
+    frame count that ends ragged in each."""
+    model, tables, rng = _tables("smplh", 24, 46, dev, E=E)
+    F = 37
+    x = torch.as_tensor((rng.normal(size=(F, tables.dof)) * 0.5)
+                        .astype(np.float32), device=dev)
+    theta, trans, extra = mj.kernel_inputs(model, tables, x)
+    obs, w = _fold_inputs(tables, F, rng, dev)
+    rule = mj.rows_frames_per_block
+
+    def rows():
+        out = []
+        for with_jac in (True, False):
+            if tables.route == "tiled":
+                # jm's last E columns are extras_cols' to write
+                Dp = tables.dof - tables.n_extra
+                jshift, vpshift = mj.extra_shifts(tables, extra)
+                sm = mj.fk_smalls_tiled_plain(theta, jshift, tables, with_jac)
+                s_, j_, u_ = mj.marker_rows_tiled(sm, trans, vpshift, tables,
+                                                  with_jac)
+                out += [s_, None if j_ is None else j_[..., :Dp], u_]
+                if with_jac:
+                    r_, j_, u_ = mj.marker_rows_tiled_fold(
+                        sm, trans, vpshift, tables, obs, w)
+                    out += [r_, j_[..., :Dp], u_]
+            else:
+                sm = mj.fk_smalls_plain(theta, tables, with_jac, extra)
+                out += mj.marker_rows(sm, trans, tables, with_jac, extra)
+                if with_jac:
+                    out += mj.marker_rows_fold(sm, trans, tables, obs, w,
+                                               extra)
+        torch.cuda.synchronize()
+        return [o for o in out if o is not None]
+
+    ref = rows()
+    for nf in (2, 4, 6, 16):
+        monkeypatch.setattr(mj, "rows_frames_per_block",
+                            lambda *a, nf=nf: nf)
+        for a, b in zip(rows(), ref):
+            assert torch.equal(a, b), nf
+    monkeypatch.setattr(mj, "rows_frames_per_block", rule)
 
 
 # the tiled extras kernels at ragged shapes: frame counts off the walks,

@@ -83,8 +83,10 @@ problem at F=4096, each pair's outputs compared first. Each line gives
 A's and B's registers and spilled bytes (their ptxas reports), and A's
 shared memory a block and blocks an SM (its occupancy queries). The other
 checkout's launchers must take this one's arguments, but for the extras
-kernels, whose launchers before their redesign (a build without
-`extras_cols_occupancy`) are called in their own signatures.
+kernels and `marker_rows`, whose launchers before their redesigns (a build
+without `extras_cols_occupancy`, without `marker_rows_tile`) are called in
+their own signatures (`marker_rows`: pd3 in place of the transposed
+posedirs tables, no frames a block or hand blocks).
 """
 
 import argparse
@@ -430,35 +432,56 @@ AB_ROWS = (("marker_rows<jac>", "bench", "marker_rows_launch", 1, "1000"),
             "marker_rows_tiled_fold_launch", 1, "1011"))
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+# the marker_rows launchers before their redesign (builds without
+# `marker_rows_tile`): pd3 in place of pdt and pd64, no frames a block and
+# hand blocks
+ROWS_OLD_SIGNATURES = {
+    "marker_rows_launch": [_I] * 8 + [_P] * 16 + [_I] + [_P] * 4,
+    "marker_rows_fold_launch": [_I] * 7 + [_P] * 16 + [_I] + [_P] * 6,
+    "marker_rows_tiled_launch": [_I] * 9 + [_P] * 19,
+    "marker_rows_tiled_fold_launch": [_I] * 8 + [_P] * 21,
+}
+
+
 def _rows_args(launcher, with_jac, tables, sm, trans, extra, vpshift, obs, w,
-               outs):
-    """The argument tuple of one marker_rows launcher, stream excluded."""
+               outs, pd3=None):
+    """The argument tuple of one marker_rows launcher, stream excluded, in
+    this tree's signature, or with `pd3` (the posedirs rows in feature
+    order, kept alive by the caller) the one before the redesign."""
     from moshpp_torch import kernels
+    from moshpp_torch.ops import marker_jac as mj
     p = kernels.ptr
     t = tables
     head = (t.num_joints, t.feat_n, t.body_dof, t.hand_dof, t.dof)
+    new = pd3 is None
+    pd = (p(t.pdt), p(t.pd64)) if new else (p(pd3),)
     smalls = (p(sm.grot), p(sm.atr), p(sm.feat), p(sm.wrot), p(sm.wtr),
-              p(sm.dr), p(trans), p(t.w3), p(t.s3), p(t.vsh3), p(t.pd3),
+              p(sm.dr), p(trans), p(t.w3), p(t.s3), p(t.vsh3), *pd,
               p(t.cf), p(t.ancmask), p(t.hc))
     F, M = trans.shape[0], t.num_markers
+    tail = ((mj.rows_frames_per_block(F, M, kernels.sm_count(trans.device),
+                                      bool(with_jac)), t.hand_blocks)
+            if new else ())
     sim, jm, uv = outs
     if launcher == "marker_rows_launch":
         return (with_jac, F, M, *head, *smalls, p(sim), p(jm), t.n_extra,
-                p(extra), p(sm.datr), p(t.dv))
+                p(extra), p(sm.datr), p(t.dv), *tail)
     if launcher == "marker_rows_fold_launch":
         return (F, M, *head, *smalls, p(sim), p(jm), t.n_extra, p(extra),
-                p(sm.datr), p(t.dv), p(obs), p(w))
+                p(sm.datr), p(t.dv), p(obs), p(w), *tail)
     if launcher == "marker_rows_tiled_launch":
         return (with_jac, F, M, *head, t.n_extra, *smalls, p(vpshift),
-                p(sim), p(jm), p(uv))
+                p(sim), p(jm), p(uv), *tail)
     return (F, M, *head, t.n_extra, *smalls, p(vpshift), p(sim), p(jm),
-            p(uv), p(obs), p(w))
+            p(uv), p(obs), p(w), *tail)
 
 
 # the tiled extras kernels' launchers before their redesign (builds without
 # `extras_cols_occupancy`): the ancestor masks in place of the parents, w3
 # in place of the sparse weight lists and their count
-_P, _I = ctypes.c_void_p, ctypes.c_int
 EXTRAS_OLD_SIGNATURES = {
     "extras_tangent_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "extras_cols_launch": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
@@ -717,10 +740,13 @@ def kernel_ab(other, pairs):
     res_a = _ptxas(info.log)
     res_b = _ptxas(open(other_log).read()) if os.path.exists(other_log) else {}
     lib_b = ctypes.CDLL(other_lib)
+    new_b = hasattr(lib_b, "marker_rows_tile")
     for name in ("marker_rows_launch", "marker_rows_fold_launch",
                  "marker_rows_tiled_launch", "marker_rows_tiled_fold_launch",
                  "dogleg_direction_launch", "pcg_direction_launch"):
-        getattr(lib_b, name).argtypes = kernels._SIGNATURES[name]
+        sigs = (kernels._SIGNATURES if new_b or name not in ROWS_OLD_SIGNATURES
+                else ROWS_OLD_SIGNATURES)
+        getattr(lib_b, name).argtypes = sigs[name]
         getattr(lib_b, name).restype = ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
     I = ctypes.c_int
@@ -754,25 +780,30 @@ def kernel_ab(other, pairs):
         w = torch.rand((F, M), device="cuda", generator=gen) * 400.0
         e = lambda *sh: torch.empty(sh, dtype=torch.float32, device="cuda")
         outs = (e(F, M, 3), e(F, M, 3, t.dof), e(F, M, mj.UV_WIDTH))
+        pd3 = t.pd3
         route = {"": 0, "ext": 1, "tiled": 2}[t.route]
         for name, prob, launcher, jac, flags in AB_ROWS:
             if prob != problem:
                 continue
             key = ("marker_rows", *flags)
-            args = _rows_args(launcher, jac, t, sm_jac if jac else sm_sim,
-                              trans, extra, vpshift, obs, w, outs)
+            sm = sm_jac if jac else sm_sim
+            args = _rows_args(launcher, jac, t, sm, trans, extra, vpshift,
+                              obs, w, outs)
+            args_b = _rows_args(launcher, jac, t, sm, trans, extra, vpshift,
+                                obs, w, outs, None if new_b else pd3)
             fa, fb = getattr(lib_a, launcher), getattr(lib_b, launcher)
-            assert fa(*args, stream) == 0 and fb(*args, stream) == 0, name
+            assert fa(*args, stream) == 0 and fb(*args_b, stream) == 0, name
             smem = I()
             blocks = lib_a.marker_rows_occupancy(
                 jac, route, int(flags[3]), t.num_joints, t.feat_n, t.body_dof,
-                t.hand_dof, t.n_extra, ctypes.byref(smem))
+                t.hand_dof, t.n_extra, t.hand_blocks, ctypes.byref(smem))
             a, b = _ab_pairs(cs, {"A": lambda: fa(*args, stream),
-                                  "B": lambda: fb(*args, stream)}, pairs, 10)
+                                  "B": lambda: fb(*args_b, stream)}, pairs,
+                             10)
             _ab_line(name, a, b, pairs,
                      f"; A: {res(key, res_a)}, {smem.value} B shared memory, "
                      f"{blocks} blocks an SM; B: {res(key, res_b)}")
-        del bp, sm_jac, sm_sim, outs, obs, w
+        del bp, sm_jac, sm_sim, outs, obs, w, pd3
         torch.cuda.empty_cache()
     for D in (117, 125, 206):
         g, B, plin, mask, delta = pcg.direction_test_system(4096, D, 1e2,
